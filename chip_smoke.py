@@ -1,27 +1,35 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's tomography CGLS path once on one CUDA card.
+"""Drive the PyTorch port's tomography CGLS paths once on one CUDA card.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one
 card; without one it exits non-zero before printing any result.
 
-Phases, each failing the run by raising:
+Two paths on the same tomo256x60 problem: the bucketed banded operator
+(kernels K1-K3, ``csrc/banded.cu``) and the shear-rotate fan projector
+``ShearFanProjector`` (K4-K6, ``csrc/shear.cu``). Phases, each failing the
+run by raising:
 
 0. the card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
-1. build K1-K3 (``trips_tpu_torch/csrc/banded.cu``) with nvcc;
-2. each kernel against its plain PyTorch version at the main path's shapes
-   (256x256 image, 60 fan-beam views, 32 line groups, 4 buckets per drive
-   orientation) for the float32, bfloat16 and int8 packs; the float32
-   operator against the host CSR matrix; adjointness;
-3. the main path: ``Tomography`` -> operator -> ``solvers.CGLS`` and
-   ``krylov.cgls_normal``, held against the JAX package's result on the
+1. build K1-K6 with nvcc, one process per source;
+2. each kernel against its plain PyTorch version at the main paths' shapes
+   (256x256 image, 60 fan-beam views; banded: 32 line groups, 4 buckets
+   per drive orientation, float32, bfloat16 and int8 packs; shear: C = 400,
+   p_pad = 384, float32 and bfloat16 ``G``); the float32 banded operator
+   against the host CSR matrix; the float32 shear operator against itself
+   on the CPU; adjointness;
+3. the main paths: ``Tomography`` -> operator -> ``solvers.CGLS`` and
+   ``krylov.cgls_normal``, held against the JAX package's results on the
    same inputs, with launch counts showing the kernels ran;
-4. times of each kernel and solver against the plain versions (CUDA events).
+4. times of each kernel, apply and solver against the plain versions
+   (CUDA events and synchronized host clocks).
 
 The line before the last holds ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
+import contextlib
 import copy
 import json
+import os
 import subprocess
 import sys
 import time
@@ -61,6 +69,35 @@ REPLACES = {
     "banded_ata": "trips_tpu/sparse/pallas_banded_kernel.py:440",
     "banded_fwd": "trips_tpu/sparse/pallas_banded_kernel.py:333",
     "banded_adj": "trips_tpu/sparse/pallas_banded_kernel.py:379",
+}
+# trips_tpu.solvers.CGLS(OP, b, 0, 30, 1e-6, x_true)["relError"] with OP =
+# trips_tpu ShearFanProjector(256, angles=theta, dtype=float32,
+# g_dtype=float32), float32 arrays (x64 off), JAX 0.9.0 on the CPU, on the
+# inputs built below.
+JAX_SHEAR_CGLS_RELERR = [
+    0.48521716148774746, 0.33009284606012207, 0.2429027055171598,
+    0.18252426220961998, 0.15027965176173808, 0.13601658638205308,
+    0.1273915563936571, 0.1202507676370931, 0.11653883386194708,
+    0.11503549654735709, 0.11224735515975216, 0.11047922561159598,
+    0.1094143755780544, 0.10890559859992716, 0.1086525609950555,
+    0.10865505874588006, 0.10868940275278659, 0.1090195956539196,
+    0.10965119459384434, 0.11032715324769678, 0.11091719683988745,
+    0.11199681617740993, 0.11335843083944963, 0.11414182166237039,
+    0.11521927746566787, 0.11560543343990226, 0.11674823909203809,
+    0.11816105975455418, 0.11958825269730335, 0.12125040410564515]
+# Shear gates. bfloat16 outputs (K4's canvases, K6's U before the second
+# product): an entry whose float32 value falls near a bf16 rounding
+# boundary may round the other way, one bf16 step (2^-8 relative), so
+# those are held to 1e-3 of the norm, not 1e-5. CGLS history: each entry
+# within 1.1e-2, twice the largest distance of the JAX float32 history
+# from the float64 one on these inputs (5.4e-3 at iteration 29, both on
+# the CPU): past the minimum at iteration 15 float32 rounding moves the
+# semiconvergence tail more than on the banded path.
+BF16_RTOL, SHEAR_HISTORY_ATOL, SOLVE_GAP = 1e-3, 1.1e-2, 1e-2
+SHEAR_REPLACES = {
+    "shear_rotate": "trips_tpu/operators/pallas_shear.py:98",
+    "shear_rotate_adjoint": "trips_tpu/operators/pallas_shear.py:121",
+    "gcontract_ata": "trips_tpu/operators/pallas_shear.py:181",
 }
 
 
@@ -104,6 +141,38 @@ def bucket_args(op, stack, isc, X):
     return (X.T.contiguous() if isc else X), W, S, P, op.n_groups, sc
 
 
+def shear_calls(op, gen, sk):
+    """(kernel name, args, kwargs) of K4, K5 and K6 at ``op``'s shapes on
+    random inputs (the G dtype where the path has it)."""
+    import torch
+
+    C, na, dev = op._C, op.n_angles, op.device
+    sh = op._shifts()
+
+    def randn(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+
+    return [("shear_rotate", (randn(3, C, C), *sh),
+             {"out_dtype": op.g_dtype}),
+            ("shear_rotate_adjoint", (randn(na, C, C).to(op.g_dtype), *sh),
+             {}),
+            ("gcontract_ata", (randn(na, C, C).to(op.g_dtype), op.G), {})]
+
+
+@contextlib.contextmanager
+def shear_ata(on):
+    """``TRIPS_TPU_SHEAR_ATA`` set to ``on`` inside the block."""
+    old = os.environ.get("TRIPS_TPU_SHEAR_ATA")
+    os.environ["TRIPS_TPU_SHEAR_ATA"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("TRIPS_TPU_SHEAR_ATA")
+        else:
+            os.environ["TRIPS_TPU_SHEAR_ATA"] = old
+
+
 def main():
     import torch
 
@@ -113,6 +182,8 @@ def main():
     from trips_tpu_torch import _build
     from trips_tpu_torch.krylov import cgls, cgls_normal
     from trips_tpu_torch.krylov.cgls import _cgn_chunk, _cgn_init
+    from trips_tpu_torch.operators import ShearFanProjector
+    from trips_tpu_torch.operators import shear_kernels as sk
     from trips_tpu_torch.problems import Tomography, device_sparse_operator
     from trips_tpu_torch.solvers import CGLS
     from trips_tpu_torch.sparse import banded_kernels as bk
@@ -129,7 +200,7 @@ def main():
     print(f"[1] kernels {'built' if info['built'] else 'loaded'} in "
           f"{info['seconds']:.2f} s: {info['path']}")
     for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line:
+        if any(w in line for w in ("entry function", "registers", "spill")):
             print(f"[1]   {line.strip()}")
 
     # ---- 2. kernels vs plain at the main path's shapes ----------------
@@ -200,6 +271,50 @@ def main():
         print(f"[2] {kind} adjointness |<Ax,y>-<x,A'y>|/(|Ax||y|) = {a!r}")
         check(a <= KERNEL_RTOL, f"{kind} adjointness {a!r}")
 
+    shear_ops = {kind: ShearFanProjector(nx, angles=tomo.theta, g_dtype=dt,
+                                         device=dev)
+                 for kind, dt in (("float32", torch.float32),
+                                  ("bfloat16", torch.bfloat16))}
+    shear_abs = {k: 0.0 for k in SHEAR_REPLACES}
+    for kind, op in shear_ops.items():
+        print(f"[2] shear {kind}: C {op._C}, G {tuple(op.G.shape)} "
+              f"{op.G.numel() * op.G.element_size()} bytes, views per "
+              f"quarter {[op._kq.count(q) for q in range(3)]}")
+        calls = shear_calls(op, gen, sk)
+        errs = []
+        for name, args, kw in calls:
+            got = getattr(sk, name)(*args, **kw)
+            ref = getattr(sk, name + "_ref")(*args, **kw)
+            torch.cuda.synchronize()
+            check(got.shape == ref.shape and got.dtype == ref.dtype,
+                  f"{name} {kind} shape/dtype")
+            e = rel(got.float(), ref.float())
+            diff = float((got.float() - ref.float()).abs().max())
+            shear_abs[name] = max(shear_abs[name], diff)
+            gate = (BF16_RTOL if kind == "bfloat16"
+                    and name != "shear_rotate_adjoint" else KERNEL_RTOL)
+            errs.append(f"{name} {e!r} (gate {gate})")
+            check(e <= gate, f"{name} {kind} rel err {e!r}")
+        print(f"[2] shear {kind} kernels vs plain: " + ", ".join(errs))
+    s32, s32_cpu = shear_ops["float32"], shear_ops["float32"].to("cpu")
+    for name, v in (("matvec", x), ("rmatvec", y), ("normal_matvec", x),
+                    ("normal_matvec K6", x)):
+        with shear_ata(name.endswith("K6")):
+            fn = name.split()[0]
+            e = rel(getattr(s32, fn)(v).cpu(), getattr(s32_cpu, fn)(v.cpu()))
+        print(f"[2] shear float32 {name} vs the CPU: rel err {e!r}")
+        check(e <= KERNEL_RTOL, f"shear {name} vs CPU {e!r}")
+    del s32_cpu
+    for kind, op in shear_ops.items():
+        Ax, Aty = op.matvec(x), op.rmatvec(y)
+        gap = abs(float(Ax.double() @ y.double())
+                  - float(x.double() @ Aty.double()))
+        a = gap / float(Ax.double().norm() * y.double().norm())
+        # rmatvec rounds the sinogram to the G dtype before its product
+        gate = BF16_RTOL if kind == "bfloat16" else KERNEL_RTOL
+        print(f"[2] shear {kind} adjointness {a!r} (gate {gate})")
+        check(a <= gate, f"shear {kind} adjointness {a!r}")
+
     # ---- 3. the main path ---------------------------------------------
     bv = torch.tensor(b_noisy.reshape(-1), dtype=torch.float32, device=dev)
     x0 = torch.zeros(nx * ny, dtype=torch.float32, device=dev)
@@ -244,6 +359,55 @@ def main():
     launches = dict(bk.launch_counts)
     print(f"[3] launches in the main path: {launches}")
     check(all(v > 0 for v in launches.values()), "a kernel never launched")
+
+    # the shear path: f32-G and bf16-G CGLS, bf16-G cgls_normal on K6
+    sk.reset_launch_counts()
+    hist_sh = {}
+    for kind, op in shear_ops.items():
+        xs, info = CGLS(op, bv, x0, CGLS_ITERS, TOL, x_true=x_true)
+        check(tuple(xs.shape) == (nx * ny, 1)
+              and bool(torch.isfinite(xs).all()), f"shear CGLS {kind}")
+        check(info["its"] == CGLS_ITERS == len(info["relError"]),
+              f"shear CGLS {kind} its {info['its']}")
+        hist_sh[kind] = np.array(info["relError"])
+    with shear_ata(True):
+        op = shear_ops["bfloat16"]
+        s, errs = _cgn_init(op, bv, x0), []
+        for it in range(1, CGN_ITERS + 1):
+            s = _cgn_chunk(op, 0.0, s, it)
+            errs.append(float((s.x - xt).norm() / xt_norm))
+        check(bool(torch.isfinite(s.x).all()), "shear cgls_normal finite")
+    shear_launches = dict(sk.launch_counts)
+    ref = np.array(JAX_SHEAR_CGLS_RELERR)
+    h = hist_sh["float32"]
+    dev_hist = float(np.abs(h - ref).max())
+    mins = {k: float(v.min()) for k, v in hist_sh.items()}
+    print(f"[3] shear CGLS float32: relError final {float(h[-1])!r} (JAX "
+          f"CPU {float(ref[-1])!r}), min {mins['float32']!r} at iteration "
+          f"{int(h.argmin()) + 1} (JAX CPU {float(ref.min())!r}), max "
+          f"|history - JAX| {dev_hist!r} at iteration "
+          f"{int(np.abs(h - ref).argmax()) + 1}")
+    print(f"[3] shear CGLS bfloat16: relError final "
+          f"{float(hist_sh['bfloat16'][-1])!r}, min {mins['bfloat16']!r} at "
+          f"iteration {int(hist_sh['bfloat16'].argmin()) + 1}")
+    print(f"[3] shear cgls_normal bfloat16 (TRIPS_TPU_SHEAR_ATA=1): "
+          f"relError final {errs[-1]!r}, min {min(errs)!r} at iteration "
+          f"{int(np.argmin(errs)) + 1}")
+    print(f"[3] shear vs banded float32 CGLS min relError: "
+          f"{mins['float32']!r} / {best!r}")
+    print(f"[3] launches in the shear path: {shear_launches}")
+    check(abs(float(h[-1]) - float(ref[-1])) <= FINAL_ATOL,
+          "shear CGLS final relError")
+    check(abs(mins["float32"] - float(ref.min())) <= FINAL_ATOL,
+          "shear CGLS min relError")
+    check(dev_hist <= SHEAR_HISTORY_ATOL, "shear CGLS relError history")
+    check(abs(mins["bfloat16"] - mins["float32"]) <= SOLVE_GAP,
+          "shear bf16 vs f32 min relError")
+    check(abs(min(errs) - mins["bfloat16"]) <= SOLVE_GAP,
+          "shear cgls_normal vs cgls min relError")
+    check(mins["float32"] <= 1.2 * best, "shear vs banded reconstruction")
+    check(all(v > 0 for v in shear_launches.values()),
+          "a shear kernel never launched")
 
     # ---- 4. times ------------------------------------------------------
     def plain(op):
@@ -313,6 +477,59 @@ def main():
                 line.append(f"{label} {rate!r} nnz/s ({ms!r} ms/iter)")
             print(f"[4] {solver} {kind}, {TIMED_ITERS} iterations: "
                   + "; ".join(line))
+    shear_ms = {}
+    for kind, op in shear_ops.items():
+        calls = shear_calls(op, gen, sk)
+        tot = {name + sfx: cuda_ms(
+                   (lambda f, a, k: lambda: f(*a, **k))(
+                       getattr(sk, name + sfx), args, kw), 20)
+               for name, args, kw in calls for sfx in ("", "_ref")}
+        shear_ms[kind] = tot
+        print(f"[4] shear {kind} G, one launch at C {op._C}, {op.n_angles} "
+              f"views: " + "; ".join(
+                  f"{name} {tot[name]!r} ms, plain {tot[name + '_ref']!r} ms"
+                  for name in SHEAR_REPLACES))
+        applies = {}
+        for name, fn, v, on in (("matvec", op.matvec, x, False),
+                                ("rmatvec", op.rmatvec, y, False),
+                                ("normal_matvec pair", op.normal_matvec, x,
+                                 False),
+                                ("normal_matvec K6", op.normal_matvec, x,
+                                 True)):
+            with shear_ata(on):
+                applies[name] = cuda_ms(lambda: fn(v), 20)
+        print(f"[4] shear {kind} G applies: " + ", ".join(
+            f"{k} {v!r} ms" for k, v in applies.items()))
+
+    def shear_plain(op):
+        p = copy.copy(op)
+        p._rot, p._rot_t = sk.shear_rotate_ref, sk.shear_rotate_adjoint_ref
+        p._ata = sk.gcontract_ata_ref
+        return p
+
+    for kind, op in shear_ops.items():
+        for solver, fn, on in (("cgls", cgls, False),
+                               ("cgls_normal pair", cgls_normal, False),
+                               ("cgls_normal K6", cgls_normal, True)):
+            walls = {}
+            with shear_ata(on):
+                for label, o in (("plain", shear_plain(op)), ("kernels", op),
+                                 ("kernels", op), ("plain", shear_plain(op))):
+                    fn(o, bv, x0, 2, 0.0)
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    _, k = fn(o, bv, x0, TIMED_ITERS, 0.0)
+                    torch.cuda.synchronize()
+                    walls.setdefault(label, []).append(
+                        (time.perf_counter() - t, k))
+            line = []
+            for label, runs in walls.items():
+                rate = float(np.mean([k * 2 * nnz / w for w, k in runs]))
+                ms = float(np.mean([w / k for w, k in runs])) * 1e3
+                line.append(f"{label} {ms!r} ms/iter (effective "
+                            f"{rate!r} nnz/s)")
+            print(f"[4] shear {solver} {kind} G, {TIMED_ITERS} iterations: "
+                  + "; ".join(line))
     print(f"[4] clocks.sm,power.draw,temperature.gpu after: "
           f"{smi('clocks.sm,power.draw,temperature.gpu')}")
 
@@ -323,6 +540,14 @@ def main():
                 "ms": kernel_ms["float32"][name],
                 "plain_ms": kernel_ms["float32"][name + "_ref"]}
                for name in ("banded_ata", "banded_fwd", "banded_adj")]
+    kernels += [{"name": name, "route": "cuda",
+                 "source": "trips_tpu_torch/csrc/shear.cu",
+                 "replaces": SHEAR_REPLACES[name],
+                 "launches": shear_launches[name],
+                 "max_abs_err": shear_abs[name],
+                 "ms": shear_ms["bfloat16"][name],
+                 "plain_ms": shear_ms["bfloat16"][name + "_ref"]}
+                for name in SHEAR_REPLACES]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -109,7 +109,8 @@ def test_unsupported_geometry_and_images_raise():
 
 def test_import_loads_no_jax():
     code = ("import sys, trips_tpu_torch, trips_tpu_torch.problems, "
-            "trips_tpu_torch.solvers, trips_tpu_torch.krylov\n"
+            "trips_tpu_torch.solvers, trips_tpu_torch.krylov, "
+            "trips_tpu_torch.operators\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'trips_tpu.'))]\n"
             "assert not bad, bad\n")

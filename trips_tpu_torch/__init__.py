@@ -1,12 +1,15 @@
 """trips-tpu-torch: the trips_tpu package on PyTorch and CUDA (NVIDIA H100).
 
-Ported so far: the tomography CGLS path (phantoms, fan-beam matrix,
-bucketed banded operator with hand-written CUDA kernels, CGLS). The JAX
-package ``trips_tpu`` is the reference each part is tested against.
+Ported so far: the tomography CGLS path (phantoms, fan- and parallel-beam
+matrices, bucketed banded operator with hand-written CUDA kernels, CGLS)
+and the matrix-free projectors (the shear-rotate fan projector with
+hand-written CUDA kernels, the on-the-fly and shear-stack projectors). The
+JAX package ``trips_tpu`` is the reference each part is tested against.
 """
 import torch
 
-from . import core, krylov, problems, solvers, sparse  # noqa: F401
+from . import (core, krylov, operators, problems, solvers,  # noqa: F401
+               sparse)
 from .core import LinearOperator, aslinearoperator  # noqa: F401
 
 __version__ = "0.1.0"
@@ -15,3 +18,5 @@ __version__ = "0.1.0"
 # float64 references, and TF32 would drop mantissa bits on the card.
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+# bf16 products sum in float32, as JAX's preferred_element_type=float32 does
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False

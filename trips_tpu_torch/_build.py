@@ -1,10 +1,12 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
 The sources under ``csrc/`` have a plain C interface, so they compile in
-seconds without PyTorch's headers. The shared library goes to ``_build/``
-beside this file, named by a hash of the sources and flags: a changed
-source builds anew, an unchanged one loads the library already there.
-Nothing is built at import time; ``load()`` builds on first use.
+seconds without PyTorch's headers. Each source compiles in its own nvcc
+process, all started together, and one more links the objects into a
+shared library in ``_build/`` beside this file, named by a hash of the
+sources and flags: a changed source builds anew, an unchanged one loads the
+library already there. Nothing is built at import time; ``load()`` builds
+on first use.
 """
 from __future__ import annotations
 
@@ -20,8 +22,22 @@ _PKG = Path(__file__).resolve().parent
 _SRC = _PKG / "csrc"
 _OUT = _PKG / "_build"
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-ENTRY_POINTS = ("trips_banded_fwd", "trips_banded_adj", "trips_banded_ata")
+         "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# symbol -> argtypes; every entry point returns a CUDA error code (int)
+# banded: kind, in, W, S, Pm, scales, out, na, T, n, p_pad, G, stream
+_BANDED = [_I] + [_P] * 6 + [_I] * 5 + [_P]
+# shear rotate and adjoint: kind, in, kx, fx, ky, fy, kq, out, na, C, stream
+_ROTATE = [_I] + [_P] * 7 + [_I] * 2 + [_P]
+ENTRY_POINTS = {
+    "trips_banded_fwd": _BANDED,
+    "trips_banded_adj": _BANDED,
+    "trips_banded_ata": _BANDED,
+    "trips_shear_rotate": _ROTATE,
+    "trips_shear_rotate_adj": _ROTATE,
+    # kind, R, G, P, U, out, na, K, N, nsplit, chunk, stream
+    "trips_shear_ata": [_I] + [_P] * 5 + [_I] * 5 + [_P],
+}
 
 _lib = None
 # what the last load() did: {"path", "built", "seconds", "log"}
@@ -58,21 +74,34 @@ def load():
     built = not so.exists()
     if built:
         _OUT.mkdir(exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *FLAGS, "-o", str(tmp),
-               *map(str, sorted(_SRC.glob("*.cu")))]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{log}")
+        nvcc, tag = _nvcc(), f"{so.stem}.{os.getpid()}"
+        jobs = []
+        for src in sorted(_SRC.glob("*.cu")):
+            obj = _OUT / f"{tag}.{src.stem}.o"
+            cmd = [nvcc, *FLAGS, "-c", "-o", str(obj), str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        tmp = _OUT / f"{tag}.tmp"
+        steps = [(cmd, proc.communicate()[0], proc.returncode)
+                 for cmd, _, proc in jobs]
+        if not any(rc for *_, rc in steps):
+            cmd = [nvcc, "-shared", "-o", str(tmp),
+                   *(str(obj) for _, obj, _ in jobs)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            steps.append((cmd, proc.stdout + proc.stderr, proc.returncode))
+        for _, obj, _ in jobs:
+            obj.unlink(missing_ok=True)
+        log = "".join(out for _, out, _ in steps)
+        for cmd, out, rc in steps:
+            if rc:
+                raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{out}")
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
-    for name in ENTRY_POINTS:
+    for name, argtypes in ENTRY_POINTS.items():
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
-        # kind, in, W, S, Pm, scales, out, na, T, n, p_pad, G, stream
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
-                       + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        fn.argtypes = argtypes
     build_info.update(path=str(so), built=built,
                       seconds=time.perf_counter() - t0, log=log)
     _lib = lib

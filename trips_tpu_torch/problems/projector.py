@@ -1,8 +1,10 @@
-"""Fan-beam projector matrix (host NumPy; ASTRA 'line_fanflat' replacement).
+"""Fan- and parallel-beam projector matrices (host NumPy; ASTRA
+'line_fanflat' / 'parallel' replacement).
 
-The NumPy path of ``trips_tpu/problems/projector.py`` ``fan_beam_matrix``,
-copied as it is: the same arguments give the same CSR matrix as that
-module's NumPy path (its optional C++ builder does not).
+The NumPy paths of ``trips_tpu/problems/projector.py`` ``fan_beam_matrix``
+and ``parallel_beam_matrix``, copied as they are: the same arguments give
+the same CSR matrix as that module's NumPy paths (its optional C++ builder
+does not).
 
 Geometry conventions (pixel size 1, image centred at the origin):
 - image column j centre x = -nx/2 + j + 1/2, row i centre y = ny/2 - i - 1/2
@@ -119,3 +121,83 @@ def fan_beam_matrix(nx, ny=None, angles=None, det_count=None, det_width=None,
     )
     A.sum_duplicates()
     return A
+
+
+def parallel_beam_matrix(nx, angles, det_count=None, det_width=1.0,
+                         model="line", ny=None):
+    """Parallel-beam projector ('parallel' geometry).
+
+    model='line': Siddon exact intersection lengths.
+    model='linear': Joseph linear interpolation (the reference's STEMPO
+    simulation projector, io.py:391-420).
+    """
+    ny = ny or nx
+    angles = np.asarray(angles, dtype=float)
+    p = det_count if det_count is not None else nx
+    offs = (np.arange(p) - (p - 1) / 2) * det_width
+    far = 2.0 * (nx + ny)
+
+    rows, cols, vals = [], [], []
+    for ai, th in enumerate(angles):
+        u = np.array([np.cos(th), np.sin(th)])  # detector axis
+        d = np.array([np.sin(th), -np.cos(th)])  # ray direction
+        origins = -far * d[None, :] + offs[:, None] * u[None, :]
+        if model == "line":
+            dirs = np.broadcast_to(d * (2 * far), origins.shape)
+            r, c, v = _line_grid_intersections(origins, dirs.copy(), nx, ny)
+        elif model == "linear":
+            r, c, v = _joseph_parallel(th, offs, nx, ny)
+        else:
+            raise ValueError(f"unknown model {model!r}")
+        rows.append(r + ai * p)
+        cols.append(c)
+        vals.append(v)
+    A = sp.csr_matrix(
+        (np.concatenate(vals), (np.concatenate(rows), np.concatenate(cols))),
+        shape=(len(angles) * p, nx * ny),
+    )
+    A.sum_duplicates()
+    return A
+
+
+def _joseph_parallel(th, offs, nx, ny):
+    """Joseph (linear-interpolation) weights for one parallel-beam angle."""
+    u = np.array([np.cos(th), np.sin(th)])
+    d = np.array([np.sin(th), -np.cos(th)])
+    p = len(offs)
+    rows_out, cols_out, vals_out = [], [], []
+    if abs(d[1]) >= abs(d[0]):
+        # drive along y (image rows); step through each row center
+        yc = (ny / 2.0 - 0.5) - np.arange(ny)  # row i center y
+        # ray: point = offs*u + t*d ; solve for x at y = yc
+        t = (yc[None, :] - offs[:, None] * u[1]) / d[1]  # (p, ny)
+        x = offs[:, None] * u[0] + t * d[0]
+        step = 1.0 / abs(d[1])
+        xi = x - (-nx / 2.0) - 0.5  # continuous column coordinate
+        j0 = np.floor(xi).astype(np.int64)
+        frac = xi - j0
+        for jj, w in ((j0, 1.0 - frac), (j0 + 1, frac)):
+            valid = (jj >= 0) & (jj < nx) & (w > 1e-12)
+            ridx, iidx = np.nonzero(valid)
+            rows_out.append(ridx)
+            cols_out.append(iidx * nx + jj[valid])
+            vals_out.append(w[valid] * step)
+    else:
+        xc = (-nx / 2.0 + 0.5) + np.arange(nx)  # column j center x
+        t = (xc[None, :] - offs[:, None] * u[0]) / d[0]
+        y = offs[:, None] * u[1] + t * d[1]
+        step = 1.0 / abs(d[0])
+        yi = (ny / 2.0 - 0.5) - y  # continuous row coordinate
+        i0 = np.floor(yi).astype(np.int64)
+        frac = yi - i0
+        for ii, w in ((i0, 1.0 - frac), (i0 + 1, frac)):
+            valid = (ii >= 0) & (ii < ny) & (w > 1e-12)
+            ridx, jidx = np.nonzero(valid)
+            rows_out.append(ridx)
+            cols_out.append(ii[valid] * nx + jidx)
+            vals_out.append(w[valid] * step)
+    return (
+        np.concatenate(rows_out),
+        np.concatenate(cols_out),
+        np.concatenate(vals_out),
+    )
