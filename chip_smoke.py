@@ -13,15 +13,22 @@ run by raising:
 1. build K1-K6 with nvcc, one process per source;
 2. each kernel against its plain PyTorch version at the main paths' shapes
    (256x256 image, 60 fan-beam views; banded: 32 line groups, 4 buckets
-   per drive orientation, float32, bfloat16 and int8 packs; shear: C = 400,
-   p_pad = 384, float32 and bfloat16 ``G``); the float32 banded operator
-   against the host CSR matrix; the float32 shear operator against itself
-   on the CPU; adjointness;
+   per drive orientation, float32, bfloat16 and int8 packs, K1 per bucket
+   and over all buckets in one launch, as the operator calls it; shear:
+   C = 400, p_pad = 384, float32 and bfloat16 ``G``); the float32 banded
+   operator against the host CSR matrix; the float32 shear operator against
+   itself on the CPU; adjointness;
 3. the main paths: ``Tomography`` -> operator -> ``solvers.CGLS`` and
    ``krylov.cgls_normal``, held against the JAX package's results on the
    same inputs, with launch counts showing the kernels ran;
-4. times of each kernel, apply and solver against the plain versions
-   (CUDA events and synchronized host clocks).
+4. times of each kernel against its plain version, the least time the
+   card could take for the same work (``bound_ms``) and, for K6, the
+   library's product pair (device time from ``torch.profiler``); applies
+   and solvers (CUDA events and synchronized host clocks);
+5. loop profiles of the solver paths that run K1 and K6: device busy time
+   per iteration by kernel (``torch.profiler``) against the wall time per
+   iteration of the same solver in 4 (timed before any profiler session,
+   which leaves the host slower), and the device's idle share.
 
 The line before the last holds ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -30,6 +37,7 @@ import contextlib
 import copy
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -136,6 +144,67 @@ def cuda_ms(fn, reps, flush=None):
     return float(np.mean([s.elapsed_time(e) for s, e in events]))
 
 
+# The card's published peaks (NVIDIA H100 SXM data sheet, 700 W), for the
+# bounds: HBM bytes/s; float32 outside the tensor cores, bf16 and TF32 on
+# them (dense).
+HBM_BPS, F32_FLOPS, BF16_FLOPS, TF32_FLOPS = 3.35e12, 67e12, 989e12, 495e12
+LOOP_ITERS = 20  # profiled iterations per solver loop (phase 5)
+
+
+def bound(nbytes, flops, peak):
+    """(bound_ms, bound_by): the larger of bytes over HBM_BPS and flops over
+    the peak rate for their type."""
+    tb, tf = nbytes / HBM_BPS * 1e3, flops / peak * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def device_ms(fn, reps, parts=None):
+    """Mean device milliseconds of the kernels ``fn()`` launches, from
+    ``torch.profiler`` over ``reps`` calls after one warm-up (host gaps
+    between launches do not count); ``parts``, if given, receives the
+    milliseconds by kernel name."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    act = [torch.profiler.ProfilerActivity.CUDA]
+    # a session now and then records no kernel at all (seen once on an
+    # H100 among dozens of runs): profile again, at most three times
+    for _ in range(3):
+        with torch.profiler.profile(activities=act) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.self_device_time_total]
+        us = sum(e.self_device_time_total for e in events)
+        if us > 0:
+            break
+    check(us > 0, "the profiler saw no device time")
+    if parts is not None:
+        for e in events:
+            # "void (anonymous namespace)::ata_kernel<float>(...)" -> name
+            name = e.key.replace("(anonymous namespace)::", "")
+            name = re.split(r"[(<]", name.removeprefix("void "))[0]
+            name = name.split("::")[-1]
+            parts[name] = parts.get(name, 0.0) + (
+                e.self_device_time_total / reps / 1e3)
+    return us / reps / 1e3
+
+
+def loop_profile(solver, op, b, x0):
+    """(device busy ms per iteration, {kernel: ms per iteration}) of
+    ``solver(op, b, x0, LOOP_ITERS, 0.0)``, its set-up included: the device
+    time of every kernel in one profiled run after a warm-up run."""
+    by_kernel = {}
+    busy = device_ms(lambda: solver(op, b, x0, LOOP_ITERS, 0.0), 1,
+                     by_kernel) / LOOP_ITERS
+    return busy, {n: v / LOOP_ITERS for n, v in by_kernel.items()}
+
+
 def bucket_args(op, stack, isc, X):
     W, S, P, sc = op._parts(stack)
     return (X.T.contiguous() if isc else X), W, S, P, op.n_groups, sc
@@ -157,6 +226,13 @@ def shear_calls(op, gen, sk):
             ("shear_rotate_adjoint", (randn(na, C, C).to(op.g_dtype), *sh),
              {}),
             ("gcontract_ata", (randn(na, C, C).to(op.g_dtype), op.G), {})]
+
+
+def all_buckets(op, X):
+    """``banded_ata_buckets`` arguments for ``op``'s pack: K1 over every
+    bucket in one launch, as ``normal_matvec`` calls it."""
+    bks = [(*op._parts(st), isc) for st, isc in zip(op.stacks, op.is_cols)]
+    return X, X.T.contiguous(), bks, op.n_groups
 
 
 @contextlib.contextmanager
@@ -245,8 +321,19 @@ def main():
                 max_abs[name] = max(max_abs[name],
                                     float((got - ref).abs().max()))
                 check(e <= KERNEL_RTOL, f"{name} {kind} rel err {e!r}")
+        X = torch.randn(op.n_pad, op.n_pad, device=dev, generator=gen)
+        args = all_buckets(op, X)
+        got = bk.banded_ata_buckets(*args)
+        ref = bk.banded_ata_buckets_ref(*args)
+        torch.cuda.synchronize()
+        e = rel(got, ref)
+        max_abs["banded_ata"] = max(max_abs["banded_ata"],
+                                    float((got - ref).abs().max()))
+        check(e <= KERNEL_RTOL, f"banded_ata_buckets {kind} rel err {e!r}")
         print(f"[2] {kind} kernels vs plain, worst bucket rel err: "
-              + ", ".join(f"{k} {v!r}" for k, v in worst.items()))
+              + ", ".join(f"{k} {v!r}" for k, v in worst.items())
+              + f"; K1 over all {len(op.stacks)} buckets in one launch "
+              f"{e!r}")
 
     A64 = A.astype(np.float32).astype(np.float64)
     rng = np.random.default_rng(1)
@@ -275,7 +362,8 @@ def main():
                                          device=dev)
                  for kind, dt in (("float32", torch.float32),
                                   ("bfloat16", torch.bfloat16))}
-    shear_abs = {k: 0.0 for k in SHEAR_REPLACES}
+    shear_abs = {kind: {k: 0.0 for k in SHEAR_REPLACES}
+                 for kind in shear_ops}
     for kind, op in shear_ops.items():
         print(f"[2] shear {kind}: C {op._C}, G {tuple(op.G.shape)} "
               f"{op.G.numel() * op.G.element_size()} bytes, views per "
@@ -290,7 +378,7 @@ def main():
                   f"{name} {kind} shape/dtype")
             e = rel(got.float(), ref.float())
             diff = float((got.float() - ref.float()).abs().max())
-            shear_abs[name] = max(shear_abs[name], diff)
+            shear_abs[kind][name] = max(shear_abs[kind][name], diff)
             gate = (BF16_RTOL if kind == "bfloat16"
                     and name != "shear_rotate_adjoint" else KERNEL_RTOL)
             errs.append(f"{name} {e!r} (gate {gate})")
@@ -360,7 +448,8 @@ def main():
     print(f"[3] launches in the main path: {launches}")
     check(all(v > 0 for v in launches.values()), "a kernel never launched")
 
-    # the shear path: f32-G and bf16-G CGLS, bf16-G cgls_normal on K6
+    # the shear path: f32-G and bf16-G CGLS, then cgls_normal on K6 for
+    # each G type (the bench's bf16 first), launches counted per G type
     sk.reset_launch_counts()
     hist_sh = {}
     for kind, op in shear_ops.items():
@@ -370,14 +459,20 @@ def main():
         check(info["its"] == CGLS_ITERS == len(info["relError"]),
               f"shear CGLS {kind} its {info['its']}")
         hist_sh[kind] = np.array(info["relError"])
+    shear_launches, cgn_sh = {}, {}
     with shear_ata(True):
-        op = shear_ops["bfloat16"]
-        s, errs = _cgn_init(op, bv, x0), []
-        for it in range(1, CGN_ITERS + 1):
-            s = _cgn_chunk(op, 0.0, s, it)
-            errs.append(float((s.x - xt).norm() / xt_norm))
-        check(bool(torch.isfinite(s.x).all()), "shear cgls_normal finite")
-    shear_launches = dict(sk.launch_counts)
+        for kind in ("bfloat16", "float32"):
+            op = shear_ops[kind]
+            s, errs = _cgn_init(op, bv, x0), []
+            for it in range(1, CGN_ITERS + 1):
+                s = _cgn_chunk(op, 0.0, s, it)
+                errs.append(float((s.x - xt).norm() / xt_norm))
+            check(bool(torch.isfinite(s.x).all()),
+                  f"shear cgls_normal {kind} finite")
+            cgn_sh[kind] = errs
+            shear_launches[kind] = dict(sk.launch_counts)
+            sk.reset_launch_counts()
+    errs = cgn_sh["bfloat16"]
     ref = np.array(JAX_SHEAR_CGLS_RELERR)
     h = hist_sh["float32"]
     dev_hist = float(np.abs(h - ref).max())
@@ -390,9 +485,10 @@ def main():
     print(f"[3] shear CGLS bfloat16: relError final "
           f"{float(hist_sh['bfloat16'][-1])!r}, min {mins['bfloat16']!r} at "
           f"iteration {int(hist_sh['bfloat16'].argmin()) + 1}")
-    print(f"[3] shear cgls_normal bfloat16 (TRIPS_TPU_SHEAR_ATA=1): "
-          f"relError final {errs[-1]!r}, min {min(errs)!r} at iteration "
-          f"{int(np.argmin(errs)) + 1}")
+    for kind, e in cgn_sh.items():
+        print(f"[3] shear cgls_normal {kind} (TRIPS_TPU_SHEAR_ATA=1): "
+              f"relError final {e[-1]!r}, min {min(e)!r} at iteration "
+              f"{int(np.argmin(e)) + 1}")
     print(f"[3] shear vs banded float32 CGLS min relError: "
           f"{mins['float32']!r} / {best!r}")
     print(f"[3] launches in the shear path: {shear_launches}")
@@ -403,61 +499,22 @@ def main():
     check(dev_hist <= SHEAR_HISTORY_ATOL, "shear CGLS relError history")
     check(abs(mins["bfloat16"] - mins["float32"]) <= SOLVE_GAP,
           "shear bf16 vs f32 min relError")
-    check(abs(min(errs) - mins["bfloat16"]) <= SOLVE_GAP,
-          "shear cgls_normal vs cgls min relError")
+    for kind, e in cgn_sh.items():
+        check(abs(min(e) - mins[kind]) <= SOLVE_GAP,
+              f"shear cgls_normal vs cgls min relError ({kind})")
     check(mins["float32"] <= 1.2 * best, "shear vs banded reconstruction")
-    check(all(v > 0 for v in shear_launches.values()),
+    check(all(v > 0 for c in shear_launches.values() for v in c.values()),
           "a shear kernel never launched")
 
     # ---- 4. times ------------------------------------------------------
     def plain(op):
         p = copy.copy(op)
         p._fwd, p._adj = bk.banded_fwd_ref, bk.banded_adj_ref
-        p._ata = bk.banded_ata_ref
+        p._ata = bk.banded_ata_buckets_ref
         return p
 
-    print(f"[4] card: {card}; ms are CUDA-event means after a warm-up")
-    # 256 MB, written between runs where a cold L2 (50 MB) is wanted
-    scrub = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
-    kernel_ms = {}
-    for kind, op in ops.items():
-        X = torch.randn(op.n_pad, op.n_pad, device=dev, generator=gen)
-        calls = {name: [] for name in REPLACES}
-        for stack, isc in zip(op.stacks, op.is_cols):
-            args = bucket_args(op, stack, isc, X)
-            Y = torch.randn(stack[0].shape[0], stack[0].shape[3], device=dev,
-                            generator=gen)
-            calls["banded_fwd"].append(args)
-            calls["banded_ata"].append(args)
-            calls["banded_adj"].append((Y,) + args[1:])
-
-        def apply(fn, arglist):
-            return lambda: [fn(*a) for a in arglist]
-
-        # one apply = the kernel on every bucket in turn, as the operator
-        # runs it (the float32 and bfloat16 packs exceed L2; int8 is 59 MB)
-        tot = {name + sfx: cuda_ms(apply(getattr(bk, name + sfx), calls[name]),
-                                   20)
-               for name in REPLACES for sfx in ("", "_ref")}
-        kernel_ms[kind] = tot
-        wbytes = sum(st[0].numel() * st[0].element_size() for st in op.stacks)
-        print(f"[4] {kind} one apply over all buckets (W {wbytes} B):")
-        for name in REPLACES:
-            ms = tot[name]
-            print(f"[4]   {name} {ms!r} ms ({wbytes / ms / 1e6!r} GB/s of W)"
-                  f", plain {tot[name + '_ref']!r} ms")
-        # per bucket with L2 scrubbed before each run: does K1's second
-        # read of W come from L2? (K2 + K3 read W from HBM twice)
-        for i, stack in enumerate(op.stacks):
-            r = {name: cuda_ms(apply(getattr(bk, name), calls[name][i:i + 1]),
-                               10, flush=scrub.zero_)
-                 for name in REPLACES}
-            print(f"[4]   {kind} bucket W{tuple(stack[0].shape)} "
-                  f"{stack[0].numel() * stack[0].element_size()} B, cold L2: "
-                  f"K1 {r['banded_ata']!r} ms, K2 {r['banded_fwd']!r} ms, "
-                  f"K3 {r['banded_adj']!r} ms")
-
     nnz = A.nnz
+    kernel_wall = {}  # (path, kind, solver) -> ms/iter of the kernels' runs
     for kind, op in ops.items():
         for solver, fn in (("cgls_normal", cgls_normal), ("cgls", cgls)):
             walls = {}
@@ -475,32 +532,10 @@ def main():
                 rate = float(np.mean([k * 2 * nnz / w for w, k in runs]))
                 ms = float(np.mean([w / k for w, k in runs])) * 1e3
                 line.append(f"{label} {rate!r} nnz/s ({ms!r} ms/iter)")
+                if label == "kernels":
+                    kernel_wall["banded", kind, solver] = ms
             print(f"[4] {solver} {kind}, {TIMED_ITERS} iterations: "
                   + "; ".join(line))
-    shear_ms = {}
-    for kind, op in shear_ops.items():
-        calls = shear_calls(op, gen, sk)
-        tot = {name + sfx: cuda_ms(
-                   (lambda f, a, k: lambda: f(*a, **k))(
-                       getattr(sk, name + sfx), args, kw), 20)
-               for name, args, kw in calls for sfx in ("", "_ref")}
-        shear_ms[kind] = tot
-        print(f"[4] shear {kind} G, one launch at C {op._C}, {op.n_angles} "
-              f"views: " + "; ".join(
-                  f"{name} {tot[name]!r} ms, plain {tot[name + '_ref']!r} ms"
-                  for name in SHEAR_REPLACES))
-        applies = {}
-        for name, fn, v, on in (("matvec", op.matvec, x, False),
-                                ("rmatvec", op.rmatvec, y, False),
-                                ("normal_matvec pair", op.normal_matvec, x,
-                                 False),
-                                ("normal_matvec K6", op.normal_matvec, x,
-                                 True)):
-            with shear_ata(on):
-                applies[name] = cuda_ms(lambda: fn(v), 20)
-        print(f"[4] shear {kind} G applies: " + ", ".join(
-            f"{k} {v!r} ms" for k, v in applies.items()))
-
     def shear_plain(op):
         p = copy.copy(op)
         p._rot, p._rot_t = sk.shear_rotate_ref, sk.shear_rotate_adjoint_ref
@@ -528,26 +563,182 @@ def main():
                 ms = float(np.mean([w / k for w, k in runs])) * 1e3
                 line.append(f"{label} {ms!r} ms/iter (effective "
                             f"{rate!r} nnz/s)")
+                if label == "kernels":
+                    kernel_wall["shear", kind, solver] = ms
             print(f"[4] shear {solver} {kind} G, {TIMED_ITERS} iterations: "
                   + "; ".join(line))
+    print(f"[4] card: {card}; kernel ms: device time (torch.profiler) "
+          f"per call; event ms: CUDA events around the calls (host gaps "
+          f"included); bounds at {HBM_BPS:.3g} B/s, {F32_FLOPS:.3g} f32, "
+          f"{BF16_FLOPS:.3g} bf16 and {TF32_FLOPS:.3g} TF32 FLOP/s")
+    # 256 MB, written between runs where a cold L2 (50 MB) is wanted
+    scrub = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
+    kernel_ms, banded_bound = {}, {}
+    for kind, op in ops.items():
+        X = torch.randn(op.n_pad, op.n_pad, device=dev, generator=gen)
+        calls = {name: [] for name in REPLACES}
+        for stack, isc in zip(op.stacks, op.is_cols):
+            args = bucket_args(op, stack, isc, X)
+            Y = torch.randn(stack[0].shape[0], stack[0].shape[3], device=dev,
+                            generator=gen)
+            calls["banded_fwd"].append(args)
+            calls["banded_ata"].append(args)
+            calls["banded_adj"].append((Y,) + args[1:])
+
+        def apply(fn, arglist):
+            return lambda: [fn(*a) for a in arglist]
+
+        # one apply: K2 and K3 on every bucket in turn, K1 over all buckets
+        # in one launch, as the operator runs them (the float32 and
+        # bfloat16 packs exceed L2; int8 is 59 MB)
+        fused = all_buckets(op, X)
+        runs = {name + sfx: apply(getattr(bk, name + sfx), calls[name])
+                for name in ("banded_fwd", "banded_adj")
+                for sfx in ("", "_ref")}
+        runs["banded_ata"] = lambda: bk.banded_ata_buckets(*fused)
+        runs["banded_ata_ref"] = lambda: bk.banded_ata_buckets_ref(*fused)
+        k1_parts = {}
+        tot = {k: device_ms(f, 10, k1_parts if k == "banded_ata" else None)
+               for k, f in runs.items()}
+        events = {name: cuda_ms(runs[name], 20) for name in REPLACES}
+        kernel_ms[kind] = tot
+        # least bytes: every stored weight, S, Pm and scales once, the image
+        # in, the sinogram or image out; 2 flops per nonzero weight and pass
+        pack = sum(nbytes(*st) for st in op.stacks)
+        nz = sum(int((st[0] != 0).sum()) for st in op.stacks)
+        img = op.n_pad * op.n_pad * 4
+        sino = sum(st[0].shape[0] * st[0].shape[3] * 4 for st in op.stacks)
+        banded_bound[kind] = {
+            "banded_ata": bound(pack + 2 * img, 4 * nz, F32_FLOPS),
+            "banded_fwd": bound(pack + img + sino, 2 * nz, F32_FLOPS),
+            "banded_adj": bound(pack + sino + len(op.stacks) * img, 2 * nz,
+                                F32_FLOPS)}
+        wbytes = sum(nbytes(st[0]) for st in op.stacks)
+        print(f"[4] {kind} one apply (W {wbytes} B, {nz} nonzero weights):")
+        for name in REPLACES:
+            ms, (bms, by) = tot[name], banded_bound[kind][name]
+            print(f"[4]   {name} {ms!r} ms ({wbytes / ms / 1e6!r} GB/s of "
+                  f"W; event ms {events[name]!r}), bound {bms!r} ms "
+                  f"({by}), plain {tot[name + '_ref']!r} ms"
+                  + (f"; by kernel {k1_parts}" if name == "banded_ata"
+                     else ""))
+        # per bucket with L2 scrubbed before each run: K1 (one bucket per
+        # launch here) reads W once, K2 + K3 read it twice
+        for i, stack in enumerate(op.stacks):
+            r = {name: cuda_ms(apply(getattr(bk, name), calls[name][i:i + 1]),
+                               10, flush=scrub.zero_)
+                 for name in REPLACES}
+            print(f"[4]   {kind} bucket W{tuple(stack[0].shape)} "
+                  f"{nbytes(stack[0])} B, cold L2 (event ms): "
+                  f"K1 {r['banded_ata']!r}, K2 + K3 "
+                  f"{r['banded_fwd'] + r['banded_adj']!r} (K2 "
+                  f"{r['banded_fwd']!r}, K3 {r['banded_adj']!r})")
+
+    shear_ms = {}
+    for kind, op in shear_ops.items():
+        calls = shear_calls(op, gen, sk)
+        k6_parts = {}
+        tot = {name + sfx: device_ms(
+                   (lambda f, a, k: lambda: f(*a, **k))(
+                       getattr(sk, name + sfx), args, kw), 10,
+                   k6_parts if name + sfx == "gcontract_ata" else None)
+               for name, args, kw in calls for sfx in ("", "_ref")}
+        # the library's pair for K6's function, in the G type (bf16
+        # products with float32 sums, U rounded to bf16 between them)
+        R, G = calls[2][1]
+        C, N, dt = op._C, op.G.shape[2], op.g_dtype
+        R2, G2 = R.view(-1, C * C), G.view(C * C, N)
+        if dt == torch.bfloat16:
+            def pair():
+                U = torch.mm(R2, G2, out_dtype=torch.float32).to(dt)
+                return torch.mm(U, G2.T, out_dtype=torch.float32)
+        else:
+            def pair():
+                return (R2 @ G2) @ G2.T
+        tot["gcontract_ata_library"] = device_ms(pair, 10)
+        # least bytes: inputs once, outputs once; K4/K5 14 flops per
+        # rotated canvas element (f32); K6 4 na C^2 p_pad on the tensor
+        # cores: bf16 once, float32 G as 3xTF32, three TF32 passes
+        na, elt = op.n_angles, op.G.element_size()
+        canv, quart = na * C * C, 3 * C * C * 4
+        shifts = nbytes(*op._shifts())
+        passes, peak = ((1, BF16_FLOPS) if dt == torch.bfloat16
+                        else (3, TF32_FLOPS))
+        tot["bounds"] = {
+            "shear_rotate": bound(quart + shifts + canv * elt, 14 * canv,
+                                  F32_FLOPS),
+            "shear_rotate_adjoint": bound(canv * elt + shifts + quart,
+                                          14 * canv, F32_FLOPS),
+            "gcontract_ata": bound(nbytes(R, G) + canv * 4,
+                                   passes * 4 * canv * N, peak)}
+        shear_ms[kind] = tot
+        print(f"[4] shear {kind} G, one launch at C {op._C}, {op.n_angles} "
+              f"views: " + "; ".join(
+                  f"{name} {tot[name]!r} ms, bound "
+                  f"{tot['bounds'][name][0]!r} ms "
+                  f"({tot['bounds'][name][1]}), plain "
+                  f"{tot[name + '_ref']!r} ms"
+                  for name in SHEAR_REPLACES)
+              + f"; library pair for K6 {tot['gcontract_ata_library']!r} ms"
+              f" (K6 event ms {cuda_ms(lambda: sk.gcontract_ata(R, G), 20)!r}"
+              f", pair {cuda_ms(pair, 20)!r}); K6 by kernel {k6_parts}")
+        applies = {}
+        for name, fn, v, on in (("matvec", op.matvec, x, False),
+                                ("rmatvec", op.rmatvec, y, False),
+                                ("normal_matvec pair", op.normal_matvec, x,
+                                 False),
+                                ("normal_matvec K6", op.normal_matvec, x,
+                                 True)):
+            with shear_ata(on):
+                applies[name] = cuda_ms(lambda: fn(v), 20)
+        print(f"[4] shear {kind} G applies: " + ", ".join(
+            f"{k} {v!r} ms" for k, v in applies.items()))
+
     print(f"[4] clocks.sm,power.draw,temperature.gpu after: "
           f"{smi('clocks.sm,power.draw,temperature.gpu')}")
 
-    kernels = [{"name": name, "route": "cuda",
-                "source": "trips_tpu_torch/csrc/banded.cu",
-                "replaces": REPLACES[name], "launches": launches[name],
-                "max_abs_err": max_abs[name],
-                "ms": kernel_ms["float32"][name],
-                "plain_ms": kernel_ms["float32"][name + "_ref"]}
+    # ---- 5. loop profiles ----------------------------------------------
+    loops = [(f"banded {kind} cgls_normal", ops[kind], False,
+              ("banded", kind, "cgls_normal")) for kind in ("float32", "int8")]
+    loops += [(f"shear {kind} G cgls_normal K6", shear_ops[kind], True,
+               ("shear", kind, "cgls_normal K6"))
+              for kind in ("bfloat16", "float32")]
+    for label, op, on, key in loops:
+        wall = kernel_wall[key]
+        with shear_ata(on):
+            busy, by_kernel = loop_profile(cgls_normal, op, bv, x0)
+        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:5]
+        print(f"[5] {label}: device busy {busy * 1e3!r} us/iter, wall "
+              f"{wall * 1e3!r} us/iter, idle share {1 - busy / wall!r}; "
+              f"busy by kernel (us/iter): "
+              + ", ".join(f"{k} {v * 1e3!r}" for k, v in top))
+
+    def entry(name, source, replaces, launches, err, ms, plain_ms, bnd,
+              library_ms, **extra):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bnd[0], "bound_by": bnd[1],
+                "library_ms": library_ms, **extra}
+
+    kernels = [entry(name, "trips_tpu_torch/csrc/banded.cu", REPLACES[name],
+                     launches[name], max_abs[name],
+                     kernel_ms["float32"][name],
+                     kernel_ms["float32"][name + "_ref"],
+                     banded_bound["float32"][name], None,
+                     storage="float32",
+                     ms_by_storage={k: v[name] for k, v in kernel_ms.items()})
                for name in ("banded_ata", "banded_fwd", "banded_adj")]
-    kernels += [{"name": name, "route": "cuda",
-                 "source": "trips_tpu_torch/csrc/shear.cu",
-                 "replaces": SHEAR_REPLACES[name],
-                 "launches": shear_launches[name],
-                 "max_abs_err": shear_abs[name],
-                 "ms": shear_ms["bfloat16"][name],
-                 "plain_ms": shear_ms["bfloat16"][name + "_ref"]}
-                for name in SHEAR_REPLACES]
+    for kind in ("bfloat16", "float32"):  # the bench's G type first
+        t = shear_ms[kind]
+        kernels += [entry(name, "trips_tpu_torch/csrc/shear.cu",
+                          SHEAR_REPLACES[name], shear_launches[kind][name],
+                          shear_abs[kind][name], t[name], t[name + "_ref"],
+                          t["bounds"][name],
+                          t["gcontract_ata_library"]
+                          if name == "gcontract_ata" else None, g_dtype=kind)
+                    for name in SHEAR_REPLACES
+                    if kind == "bfloat16" or name == "gcontract_ata"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

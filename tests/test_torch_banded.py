@@ -33,7 +33,8 @@ def _pair(nx, kind):
     jop = JaxBucketed.from_scipy_fan(A, nx, 12, n_groups=8, n_buckets=2,
                                      dtype=jdt)
     top = BucketedBandedProjector.from_scipy_fan(A, nx, 12, n_groups=8,
-                                                 n_buckets=2, dtype=tdt)
+                                                 n_buckets=2, dtype=tdt,
+                                                 device="cpu")
     return A, jop, top
 
 
@@ -57,7 +58,7 @@ def _from_jax(jop):
     return BucketedBandedProjector.from_numpy_stacks(
         [[np.asarray(a) for a in st] for st in jop.stacks], jop.aidxs,
         jop.is_cols, jop.shape, jop.nx, jop.det_count, jop.n_groups,
-        jop.nnz, jop.n_pad)
+        jop.nnz, jop.n_pad, device="cpu")
 
 
 @pytest.mark.parametrize("nx", [32, 40])
@@ -151,4 +152,5 @@ def test_wrappers_refuse_other_devices():
 def test_storage_dtype_refused():
     with pytest.raises(ValueError, match="storage dtype"):
         BucketedBandedProjector.from_scipy_fan(_matrix(32), 32, 12,
-                                               n_groups=8, dtype=np.float64)
+                                               n_groups=8, dtype=np.float64,
+                                               device="cpu")

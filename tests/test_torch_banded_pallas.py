@@ -35,7 +35,7 @@ def packs():
         top = BucketedBandedProjector.from_numpy_stacks(
             [[np.asarray(a) for a in st] for st in jop.stacks], jop.aidxs,
             jop.is_cols, jop.shape, jop.nx, jop.det_count, jop.n_groups,
-            jop.nnz, jop.n_pad)
+            jop.nnz, jop.n_pad, device="cpu")
         out[kind] = (jop, top)
     return out
 

@@ -70,7 +70,7 @@ def banded():
     A = fan_beam_matrix(32, views=12).astype(np.float32)
     jop = JaxBucketed.from_scipy_fan(A, 32, 12, n_groups=8, n_buckets=2)
     top = BucketedBandedProjector.from_scipy_fan(A, 32, 12, n_groups=8,
-                                                 n_buckets=2)
+                                                 n_buckets=2, device="cpu")
     rng = np.random.default_rng(11)
     b = (A @ rng.random(A.shape[1])).astype(np.float32)
     return jop, top, b

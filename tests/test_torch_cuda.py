@@ -8,7 +8,9 @@ Without a card every test here skips. On a card (no JAX needed):
 Float32 sums run in another order (and the banded adjoints with atomics),
 so the kernels agree with the plain versions to 1e-5 of the norm. A
 bfloat16 output (K4's canvases, K6's U before its second product) may
-round an entry one bf16 step the other way: 1e-3 there.
+round an entry one bf16 step the other way: 1e-3 there. K6's float32 path
+sums 3xTF32 products (each within 2^-22 of the float32 product), also held
+to 1e-5.
 """
 import numpy as np
 import pytest
@@ -134,7 +136,7 @@ def test_plain_projectors_match_cpu(cuda, name):
            "OnTheFlyFanProjector": OnTheFlyFanProjector,
            "ShearStackParallelProjector": ShearStackParallelProjector}[name]
     angles = np.linspace(0, np.pi, 10, endpoint=False) + 0.0123
-    gpu, cpu = cls(40, angles, device=cuda), cls(40, angles)
+    gpu, cpu = cls(40, angles, device=cuda), cls(40, angles, device="cpu")
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.standard_normal(cpu.shape[1]).astype(np.float32))
     y = torch.from_numpy(rng.standard_normal(cpu.shape[0]).astype(np.float32))
@@ -163,3 +165,63 @@ def test_shear_wrappers_check_inputs(cuda):
     with pytest.raises(TypeError, match="G must be"):
         sk.gcontract_ata(torch.zeros(na, C, C, device=cuda,
                                      dtype=torch.bfloat16), op.G)
+
+
+@pytest.mark.parametrize("g_dtype", G_DTYPES)
+@pytest.mark.parametrize("p_pad", [128, 384])
+@pytest.mark.parametrize("na", [12, 60])
+def test_gcontract_ata_shapes(cuda, na, p_pad, g_dtype):
+    """K6 on random R and G at C = 100: C*C = 10,000 is a whole number
+    neither of 64-row tiles nor of the split's chunks."""
+    C = 100
+    g = torch.Generator(device=cuda).manual_seed(na + p_pad)
+    R = torch.randn(na, C, C, device=cuda, generator=g).to(g_dtype)
+    G = torch.randn(C, C, p_pad, device=cuda, generator=g).to(g_dtype)
+    before = sk.launch_counts["gcontract_ata"]
+    got = sk.gcontract_ata(R, G)
+    assert sk.launch_counts["gcontract_ata"] == before + 1
+    ref = sk.gcontract_ata_ref(R, G)
+    assert got.shape == (na, C, C) and got.dtype == torch.float32
+    assert _rel(got, ref) <= (1e-5 if g_dtype == torch.float32 else 1e-3)
+
+
+@pytest.fixture(scope="module")
+def geometries():
+    """(A, nx, angles) of tomo256x60 and of nx = 300 (n = 384), 20 views."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    out = {}
+    for name, nx, views in (("tomo256x60", 256, 60), ("nx300", 300, 20)):
+        theta = np.linspace(0, np.pi, views, endpoint=False)
+        so, od = 3 * nx, nx
+        A = fan_beam_matrix(nx, nx, angles=theta,
+                            det_count=int(np.sqrt(2) * nx),
+                            det_width=(so + od) / so, source_origin=so,
+                            origin_det=od)
+        out[name] = (A, nx, theta)
+    return out
+
+
+@pytest.mark.parametrize("dtype", KINDS)
+@pytest.mark.parametrize("geometry", ["tomo256x60", "nx300"])
+def test_banded_ata_every_bucket(cuda, geometries, geometry, dtype):
+    """K1 on each bucket of the pack alone, and over all buckets in one
+    launch (the operator's call), against the plain versions."""
+    A, nx, theta = geometries[geometry]
+    op = BucketedBandedProjector.from_scipy_fan(
+        A, nx, None, angles=theta, n_groups=32, dtype=dtype, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    X = torch.randn(op.n_pad, op.n_pad, device=cuda, generator=g)
+    XT = X.T.contiguous()
+    buckets = [(*op._parts(st), isc) for st, isc in zip(op.stacks,
+                                                        op.is_cols)]
+    for W, S, P, sc, isc in buckets:
+        inp = XT if isc else X
+        got = bk.banded_ata(inp, W, S, P, op.n_groups, sc)
+        ref = bk.banded_ata_ref(inp, W, S, P, op.n_groups, sc)
+        assert _rel(got, ref) <= 1e-5, tuple(W.shape)
+    before = bk.launch_counts["banded_ata"]
+    got = bk.banded_ata_buckets(X, XT, buckets, op.n_groups)
+    assert bk.launch_counts["banded_ata"] == before + 1
+    ref = bk.banded_ata_buckets_ref(X, XT, buckets, op.n_groups)
+    assert _rel(got, ref) <= 1e-5

@@ -61,7 +61,7 @@ def _port(jop, dtype, g_dtype):
         np.asarray(jop.G.astype(jnp.float64)), np.asarray(jop._kx),
         np.asarray(jop._fx), np.asarray(jop._ky), np.asarray(jop._fy),
         jop._kq, jop._C, jop.nx, jop.det_count, jop._so, jop._od, jop._dw,
-        dtype=dtype, g_dtype=g_dtype)
+        dtype=dtype, g_dtype=g_dtype, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -99,7 +99,8 @@ def test_host_setup_matches_jax(ops, geometry):
     else:
         kw, nx, views = NONDEFAULT, 24, 6
         jop = JaxShearFan(nx, views=views, dtype=jnp.float64, **kw)
-    top = ShearFanProjector(nx, views=views, dtype=torch.float64, **kw)
+    top = ShearFanProjector(nx, views=views, dtype=torch.float64,
+                            device="cpu", **kw)
     assert (top._C, top._kq, top.shape) == (jop._C, jop._kq, jop.shape)
     for name in ("_kx", "_fx", "_ky", "_fy"):
         assert np.array_equal(getattr(top, name).numpy(),
@@ -108,7 +109,7 @@ def test_host_setup_matches_jax(ops, geometry):
                                atol=0)
     if geometry == "default":
         jb, tb = ops["bfloat16"][0], ShearFanProjector(
-            nx, views=views, g_dtype=torch.bfloat16)
+            nx, views=views, g_dtype=torch.bfloat16, device="cpu")
         assert np.array_equal(tb.G.float().numpy(),
                               np.asarray(jb.G.astype(jnp.float32)))
 
@@ -199,7 +200,8 @@ def test_operator_matches_jax(ops, kind, rng, monkeypatch):
 @pytest.mark.parametrize("nx,views,kw", [
     (32, 8, {}), (16, 5, {"det_count": 31}), (24, 6, NONDEFAULT)])
 def test_adjoint_exact(nx, views, kw, rng, monkeypatch):
-    op = ShearFanProjector(nx, views=views, dtype=torch.float64, **kw)
+    op = ShearFanProjector(nx, views=views, dtype=torch.float64,
+                           device="cpu", **kw)
     x = torch.from_numpy(rng.standard_normal(op.shape[1]))
     y = torch.from_numpy(rng.standard_normal(op.shape[0]))
     np.testing.assert_allclose(float(op.matvec(x) @ y),
@@ -216,7 +218,7 @@ def test_nondefault_geometry_close_to_siddon():
     nx, views = 24, 6
     A = fan_beam_matrix(nx, views=views, **NONDEFAULT)
     op = ShearFanProjector(nx, views=views, dtype=torch.float64,
-                           **NONDEFAULT)
+                           device="cpu", **NONDEFAULT)
     yy, xx = np.mgrid[0:nx, 0:nx]
     sm = np.exp(-(((xx - 14.0) ** 2 + (yy - 8.0) ** 2) / 12.0)).reshape(-1)
     assert _rel(op.matvec(torch.from_numpy(sm)), A @ sm) < 0.08
@@ -268,7 +270,8 @@ def test_cgls_reconstruction_parity(rng):
     its operator (nx = 64, 20 views, float64, port only)."""
     nx, views, noise = 64, 20, 0.02
     A = fan_beam_matrix(nx, views=views)
-    op = ShearFanProjector(nx, views=views, dtype=torch.float64)
+    op = ShearFanProjector(nx, views=views, dtype=torch.float64,
+                           device="cpu")
     xt = grains(nx, seed=0).reshape(-1)
     b_true = A @ xt
     e = rng.standard_normal(len(b_true))

@@ -54,7 +54,8 @@ def pairs():
     out = {}
     for kind, (name, args, kw) in OPS.items():
         out[kind] = (getattr(jo, name)(*args, dtype=jnp.float64, **kw),
-                     getattr(to, name)(*args, dtype=torch.float64, **kw))
+                     getattr(to, name)(*args, dtype=torch.float64,
+                                       device="cpu", **kw))
     return out
 
 
@@ -112,7 +113,7 @@ def test_operator_matches_matrix(pairs, kind, rng):
 @pytest.mark.parametrize("kind", list(OPS))
 def test_float32(kind, rng):
     name, args, kw = OPS[kind]
-    op = getattr(to, name)(*args, dtype=torch.float32, **kw)
+    op = getattr(to, name)(*args, dtype=torch.float32, device="cpu", **kw)
     A = _matrix(kind)
     x = rng.standard_normal(op.shape[1])
     y = rng.standard_normal(op.shape[0])
@@ -130,6 +131,7 @@ def test_fan_axis_aligned_angles(rng):
     nx = 16
     angles = np.array([0.0, np.pi / 2, np.pi / 4])
     A = fan_beam_matrix(nx, angles=angles)
-    op = to.OnTheFlyFanProjector(nx, angles=angles, dtype=torch.float64)
+    op = to.OnTheFlyFanProjector(nx, angles=angles, dtype=torch.float64,
+                                 device="cpu")
     x = rng.standard_normal(nx * nx)
     assert _rel(op.matvec(torch.from_numpy(x)), A @ x) < 1e-6

@@ -1,7 +1,9 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
-The sources under ``csrc/`` have a plain C interface, so they compile in
-seconds without PyTorch's headers. Each source compiles in its own nvcc
+The sources under ``csrc/`` (``*.cu``, sharing ``hopper.cuh``) have a
+plain C interface, so they compile in seconds without PyTorch's headers;
+TMA's tensor maps are encoded through the driver entry point, so nothing
+links libcuda. Each source compiles in its own nvcc
 process, all started together, and one more links the objects into a
 shared library in ``_build/`` beside this file, named by a hash of the
 sources and flags: a changed source builds anew, an unchanged one loads the
@@ -32,11 +34,15 @@ _ROTATE = [_I] + [_P] * 7 + [_I] * 2 + [_P]
 ENTRY_POINTS = {
     "trips_banded_fwd": _BANDED,
     "trips_banded_adj": _BANDED,
-    "trips_banded_ata": _BANDED,
+    # K1: kind, nb, 4 pointer arrays (W, S, Pm, scales), 5 int arrays (na,
+    # T, L, Tb, cols), X, XT, out, n, p_pad, G, det, cs, lines, stream
+    "trips_banded_ata": [_I, _I] + [_P] * 12 + [_I] * 6 + [_P],
+    "trips_banded_ata_max_buckets": [],
     "trips_shear_rotate": _ROTATE,
     "trips_shear_rotate_adj": _ROTATE,
     # kind, R, G, P, U, out, na, K, N, nsplit, chunk, stream
     "trips_shear_ata": [_I] + [_P] * 5 + [_I] * 5 + [_P],
+    "trips_shear_ata_k_tile": [],
 }
 
 _lib = None
@@ -57,7 +63,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(FLAGS).encode())
-    for f in sorted(_SRC.glob("*.cu")):
+    for f in sorted(_SRC.glob("*.cu*")):
         h.update(f.name.encode())
         h.update(f.read_bytes())
     return _OUT / f"libtrips_kernels_{h.hexdigest()[:16]}.so"

@@ -1,3 +1,4 @@
+from . import device  # noqa: F401
 from .linop import (AdjointOperator, DenseOperator, LinearOperator,
                     aslinearoperator)
 

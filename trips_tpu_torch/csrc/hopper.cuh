@@ -1,0 +1,190 @@
+// Hopper (sm_90a) building blocks shared by banded.cu and shear.cu: TMA
+// tensor maps (encoded on the host through the driver entry point, so the
+// library links no libcuda, and cached per pointer and shape), mbarriers,
+// TMA loads and wgmma shared-memory descriptors.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+#include <cstring>
+#include <mutex>
+
+namespace hopper {
+
+// ---- host: tensor maps -----------------------------------------------------
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+struct MapKey {
+  const void* ptr;
+  int dtype, rank, swizzle;
+  uint64_t dims[3];
+  uint32_t box[3];
+  bool operator==(const MapKey& o) const {
+    return std::memcmp(this, &o, sizeof(MapKey)) == 0;
+  }
+};
+
+// Encode (or fetch from the cache) a row-major tensor map: dims[0] is the
+// contiguous axis, elt the element size in bytes. Out-of-bounds boxes read
+// as zeros. Returns a cudaError_t value (0 on success).
+inline int tensor_map(CUtensorMap* out, const void* ptr, CUtensorMapDataType dt,
+                      int elt, int rank, const uint64_t* dims,
+                      const uint32_t* box, CUtensorMapSwizzle swizzle) {
+  static std::mutex mu;
+  static EncodeTiled encode = nullptr;
+  constexpr int kSlots = 64;
+  static MapKey keys[kSlots];
+  static CUtensorMap maps[kSlots];
+  static int used = 0, next = 0;
+  MapKey k;
+  std::memset(&k, 0, sizeof(k));
+  k.ptr = ptr;
+  k.dtype = static_cast<int>(dt);
+  k.rank = rank;
+  k.swizzle = static_cast<int>(swizzle);
+  for (int i = 0; i < rank; ++i) {
+    k.dims[i] = dims[i];
+    k.box[i] = box[i];
+  }
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < used; ++i) {
+    if (keys[i] == k) {
+      *out = maps[i];
+      return 0;
+    }
+  }
+  if (!encode) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
+                                            cudaEnableDefault, &q);
+    if (e != cudaSuccess || q != cudaDriverEntryPointSuccess || !fn) {
+      return static_cast<int>(e != cudaSuccess ? e : cudaErrorNotSupported);
+    }
+    encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  cuuint64_t gdim[3], gstride[2];
+  cuuint32_t bdim[3], estride[3] = {1, 1, 1};
+  uint64_t s = static_cast<uint64_t>(elt);
+  for (int i = 0; i < rank; ++i) {
+    gdim[i] = dims[i];
+    bdim[i] = box[i];
+    if (i > 0) gstride[i - 1] = s;
+    s *= dims[i];
+  }
+  CUtensorMap m;
+  CUresult r = encode(&m, dt, rank, const_cast<void*>(ptr), gdim, gstride,
+                      bdim, estride, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                      CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return static_cast<int>(cudaErrorInvalidValue);
+  keys[next] = k;
+  maps[next] = m;
+  next = (next + 1) % kSlots;
+  if (used < kSlots) ++used;
+  *out = m;
+  return 0;
+}
+
+// ---- device: mbarriers and TMA ---------------------------------------------
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void bar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// Wait until the barrier's phase differs from `parity`.
+__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT_%=;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// ---- device: wgmma ---------------------------------------------------------
+// Shared-memory matrix descriptor for a 128-byte-swizzled tile whose atoms
+// (8 rows of 128 bytes, as TMA writes them with CU_TENSOR_MAP_SWIZZLE_128B)
+// are 1024-byte aligned. lbo, sbo in bytes.
+__device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo,
+                                               uint32_t sbo) {
+  const uint64_t a = smem_addr(p);
+  return ((a & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Pin registers that an in-flight wgmma writes at this point of the
+// program: the compiler sees the wgmma asm as done at once and could move
+// a register-only use of its accumulator above wgmma_wait0 otherwise.
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+}  // namespace hopper

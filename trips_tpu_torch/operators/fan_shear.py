@@ -34,6 +34,7 @@ import os
 import numpy as np
 import torch
 
+from ..core.device import DEFAULT, resolve
 from ..core.linop import LinearOperator
 from .shear_kernels import gcontract_ata, shear_rotate, shear_rotate_adjoint
 
@@ -66,6 +67,7 @@ class ShearFanProjector(LinearOperator):
     ``dtype`` is the operator's working type (float32 on the card; float64
     only on the CPU). ``g_dtype`` is the storage type of ``G`` (float32 or
     bfloat16; the rotated canvases are rounded to it before stage B).
+    ``device``: the CUDA card unless "cpu" is asked for.
     """
 
     _rot = staticmethod(shear_rotate)             # K4
@@ -74,7 +76,7 @@ class ShearFanProjector(LinearOperator):
 
     def __init__(self, nx, angles=None, views=None, det_count=None,
                  det_width=None, source_origin=None, origin_det=None,
-                 ny=None, dtype=torch.float32, g_dtype=None, device="cpu"):
+                 ny=None, dtype=torch.float32, g_dtype=None, device=DEFAULT):
         ny = ny or nx
         if ny != nx:
             raise NotImplementedError("square grids only")
@@ -112,7 +114,7 @@ class ShearFanProjector(LinearOperator):
     @classmethod
     def from_numpy(cls, G, kx, fx, ky, fy, kq, C, nx, det_count,
                    source_origin, origin_det, det_width, dtype=torch.float32,
-                   g_dtype=None, device="cpu"):
+                   g_dtype=None, device=DEFAULT):
         """The operator from another build's arrays (the JAX operator's
         ``G``, ``_kx``, ``_fx``, ``_ky``, ``_fy``, ``_kq``, ``_C`` and
         geometry, as NumPy): the same bytes in both packages. ``G`` comes as
@@ -134,7 +136,7 @@ class ShearFanProjector(LinearOperator):
         self.n_angles = na
         self.shape = (na * self.det_count, self.nx * self.ny)
         self.dtype, self.g_dtype = dtype, g_dtype
-        self.device = torch.device(device)
+        self.device = resolve(device)
         self._so, self._od, self._dw = float(so), float(od), float(dw)
         self._C = int(C)
         self._kq = tuple(int(v) for v in kq)

@@ -4,7 +4,8 @@
 Each apply generates the projector's weights for one view at a time from
 per-view scalars and contracts them with the image at once; no matrix is
 stored. The JAX operators map over views with ``lax.map``; here a Python
-loop over views does, in plain PyTorch. Products run in full float32 (the
+loop over views does, in plain PyTorch, on ``device`` (the CUDA card
+unless ``device="cpu"``). Products run in full float32 (the
 package turns TF32 off) or float64; the JAX package's
 ``TRIPS_TPU_PROJ_PRECISION`` knob sets a TPU matrix-unit pass count and has
 no counterpart.
@@ -19,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.device import DEFAULT, resolve
 from ..core.linop import LinearOperator
 
 
@@ -62,7 +64,7 @@ class OnTheFlyParallelProjector(LinearOperator):
     """
 
     def __init__(self, nx, angles, det_count=None, det_width=1.0, ny=None,
-                 dtype=torch.float32, device="cpu"):
+                 dtype=torch.float32, device=DEFAULT):
         ny = ny or nx
         if ny != nx:
             raise NotImplementedError("square grids only")
@@ -72,7 +74,7 @@ class OnTheFlyParallelProjector(LinearOperator):
         self.angles = np.asarray(angles, dtype=float)
         self.n_angles = len(self.angles)
         self.shape = (self.n_angles * self.det_count, nx * ny)
-        self.dtype, self.device = dtype, torch.device(device)
+        self.dtype, self.device = dtype, resolve(device)
         params = [_angle_params(th, nx, ny, self.det_count, self.det_width)
                   for th in self.angles]
         self.drive_is_y = tuple(bool(pr[0]) for pr in params)
@@ -121,7 +123,7 @@ class OnTheFlyFanProjector(LinearOperator):
 
     def __init__(self, nx, angles=None, views=None, det_count=None,
                  det_width=None, source_origin=None, origin_det=None,
-                 ny=None, dtype=torch.float32, device="cpu"):
+                 ny=None, dtype=torch.float32, device=DEFAULT):
         ny = ny or nx
         if ny != nx:
             raise NotImplementedError("square grids only")
@@ -136,7 +138,7 @@ class OnTheFlyFanProjector(LinearOperator):
         dw = det_width if det_width is not None else (so + od) / so
         self.det_count = p
         self.shape = (self.n_angles * p, nx * ny)
-        self.dtype, self.device = dtype, torch.device(device)
+        self.dtype, self.device = dtype, resolve(device)
 
         offs = (np.arange(p) - (p - 1) / 2.0) * dw
         Sx = so * np.sin(angles)

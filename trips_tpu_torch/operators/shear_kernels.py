@@ -24,15 +24,15 @@ launches only.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 launch_counts = {"shear_rotate": 0, "shear_rotate_adjoint": 0,
                  "gcontract_ata": 0}
 
 _KIND = {torch.float32: 0, torch.bfloat16: 1}
-_TILE_N = 128      # output columns per K6 block (csrc/shear.cu kTN)
-_TILE_K = 32       # depth of one K6 shared-memory step (kTK)
-_ATA_BLOCKS = 264  # first K6 product: about two blocks per SM of an H100
+_MAX_BF16_N = 1024  # K6 bf16 keeps U (64 x p_pad) in shared memory
 
 
 def reset_launch_counts():
@@ -182,6 +182,22 @@ def shear_rotate_adjoint(g, kx, fx, ky, fy, kq):
     return out
 
 
+@functools.lru_cache(maxsize=8)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def k_split(K, blocks, unit):
+    """K6's split of the C*C axis: ``(chunk, nsplit)``, block ``s`` taking
+    rows ``[s * chunk, min(K, (s + 1) * chunk))``, ``chunk`` a multiple of
+    ``unit`` (the kernel's tile, ``trips_shear_ata_k_tile``), about one
+    block per SM (``blocks``). The first product's partials are summed in
+    block order."""
+    chunk = -(-K // blocks)
+    chunk = -(-chunk // unit) * unit
+    return chunk, -(-K // chunk)
+
+
 def gcontract_ata(R, G):
     """K6: ``R (na, C, C)`` and ``G (C, C, p_pad)`` of one dtype ->
     ``(na, C, C)`` float32 (float64 for float64 inputs on the CPU)."""
@@ -193,13 +209,18 @@ def gcontract_ata(R, G):
     _check([(R, tuple(_KIND), (na, C, C), "R"),
             (G, R.dtype, (C, C, N), "G")], R)
     K = C * C
-    n_tiles = -(-N // _TILE_N) * -(-na // 64)
-    nsplit = max(1, _ATA_BLOCKS // n_tiles)
-    chunk = -(-K // nsplit)
-    chunk = -(-chunk // _TILE_K) * _TILE_K
-    nsplit = -(-K // chunk)
+    # TMA rows are whole 16-byte units; wgmma and the tile loops take
+    # p_pad in 64-detector boxes
+    if K % 8 or N % 64 or (R.dtype == torch.bfloat16 and N > _MAX_BF16_N):
+        raise ValueError(f"K6 takes C*C a multiple of 8 and p_pad a "
+                         f"multiple of 64 (at most {_MAX_BF16_N} for "
+                         f"bfloat16), got C={C}, p_pad={N}")
+    from .. import _build
+
+    chunk, nsplit = k_split(K, _sm_count(R.device.index or 0),
+                            _build.load().trips_shear_ata_k_tile())
     P = torch.empty((nsplit, na, N), dtype=torch.float32, device=R.device)
-    U = torch.empty((na, N), dtype=torch.float32, device=R.device)
+    U = torch.empty((na, N), dtype=R.dtype, device=R.device)
     out = torch.empty((na, C, C), dtype=torch.float32, device=R.device)
     _launch("gcontract_ata", "trips_shear_ata", R, _KIND[R.dtype],
             *_ptrs(R, G, P, U, out), na, K, N, nsplit, chunk)

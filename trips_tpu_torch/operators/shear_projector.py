@@ -22,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.device import DEFAULT, resolve
 from ..core.linop import LinearOperator
 from .projector_op import _angle_params
 
@@ -39,7 +40,7 @@ class ShearStackParallelProjector(LinearOperator):
     """
 
     def __init__(self, nx, angles, det_count=None, det_width=1.0, ny=None,
-                 dtype=torch.float32, device="cpu"):
+                 dtype=torch.float32, device=DEFAULT):
         ny = ny or nx
         if ny != nx:
             raise NotImplementedError("square grids only")
@@ -49,7 +50,7 @@ class ShearStackParallelProjector(LinearOperator):
         self.angles = np.asarray(angles, dtype=float)
         self.n_angles = na = len(self.angles)
         self.shape = (na * p, nx * ny)
-        self.dtype, self.device = dtype, torch.device(device)
+        self.dtype, self.device = dtype, resolve(device)
 
         params = [_angle_params(th, nx, ny, p, self.det_width)
                   for th in self.angles]
@@ -136,7 +137,7 @@ def shear_stack_matrix(nx, angles, det_count=None, det_width=1.0, ny=None):
     from scipy import sparse as sp
 
     op = ShearStackParallelProjector(nx, angles, det_count, det_width, ny,
-                                     dtype=torch.float64)
+                                     dtype=torch.float64, device="cpu")
     p = op.det_count
     C0, Pd, step = (v.numpy() for v in (op.C0, op.Pd, op.step))
     s = op.shifts.numpy() - op._OFF  # bi + C0

@@ -4,25 +4,28 @@ Counterpart of ``trips_tpu/problems/tomography.py`` (API parity with
 ``trips/test_problems/Tomography.py:41-268``): the same geometry
 (p = int(sqrt(2)*nx) detectors, theta in [0, pi), source 3*nx, detector nx,
 pixel size (so+od)/so), data generated with angles shifted by 1e-8 rad to
-avoid the inverse crime, and a solver-facing operator on ``device``: the
-Ta-bucketed banded pack of the host CSR matrix.
+avoid the inverse crime, and a solver-facing operator on ``device`` (the
+CUDA card unless ``device="cpu"``): the Ta-bucketed banded pack of the
+host CSR matrix.
 """
 from __future__ import annotations
 
 import numpy as np
 import scipy.linalg as sla
 
+from ..core.device import DEFAULT, resolve
 from ..sparse import BucketedBandedProjector
 from . import phantoms as phantom
 from .projector import fan_beam_matrix
 
 
 def device_sparse_operator(A_csr, dtype=np.float32, nx=None, angles=None,
-                           device="cpu"):
+                           device=DEFAULT):
     """Pack a host CSR fan/parallel matrix as the bucketed banded operator
-    (32 line groups, 4 buckets) on ``device``. ``dtype``: float32 (the exact
-    matrix), bfloat16 or "int8". Needs the square-grid geometry (``nx`` and
-    ``angles``); other geometries have no torch operator yet."""
+    (32 line groups, 4 buckets) on ``device`` (the card unless "cpu" is
+    asked for). ``dtype``: float32 (the exact matrix), bfloat16 or "int8".
+    Needs the square-grid geometry (``nx`` and ``angles``); other
+    geometries have no torch operator yet."""
     if nx is None or angles is None or A_csr.shape[1] != nx * nx:
         raise NotImplementedError(
             "only square grids with known angles have a torch operator "
@@ -35,7 +38,7 @@ def device_sparse_operator(A_csr, dtype=np.float32, nx=None, angles=None,
 class Tomography:
     def __init__(self, **kwargs):
         self.seed = kwargs.pop("seed", 2022)
-        self.device = kwargs.pop("device", "cpu")
+        self.device = resolve(kwargs.pop("device", DEFAULT))
         self.nx = None
         self.ny = None
         self.CommitCrime = kwargs.get("CommitCrime", False)

@@ -2,9 +2,9 @@
 
 Counterpart of ``trips_tpu/sparse/banded_buckets.py``: each drive group's
 angles are split into ``n_buckets`` buckets sorted by tap width ``T_a``, each
-stacked at its own ``T``, and every apply runs one kernel per bucket
-(``banded_kernels``: K2 for ``matvec``, K3 for ``rmatvec``, K1 for the fused
-``normal_matvec``). Storage classes: float32 (the exact matrix), bfloat16,
+stacked at its own ``T``. ``matvec`` runs K2 and ``rmatvec`` K3 once per
+bucket; the fused ``normal_matvec`` runs K1 once over all buckets
+(``banded_kernels``). Storage classes: float32 (the exact matrix), bfloat16,
 and int8 with per-angle absmax/127 scales. Applies compute in float32 on
 the dequantized weights whatever the input dtype, and return the input's
 dtype.
@@ -14,9 +14,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.device import DEFAULT, resolve
 from ..core.linop import LinearOperator
 from .banded import _pack_groups, _stack_packs, dequant_slab
-from .banded_kernels import banded_adj, banded_ata, banded_fwd
+from .banded_kernels import banded_adj, banded_ata_buckets, banded_fwd
 
 
 def _storage(dtype):
@@ -50,16 +51,17 @@ class BucketedBandedProjector(LinearOperator):
     ``stacks``: one ``(W, S, Pm)`` or ``(W, S, Pm, scales)`` tensor tuple per
     bucket, ``Pm`` reduced mod ``n_pad``; ``aidxs``/``is_cols``: each bucket's
     global angle ids and drive flag (``is_cols``: the bucket runs on the
-    transposed image).
+    transposed image). ``device``: the CUDA card unless "cpu" is asked
+    for.
     """
 
     _fwd = staticmethod(banded_fwd)
     _adj = staticmethod(banded_adj)
-    _ata = staticmethod(banded_ata)
+    _ata = staticmethod(banded_ata_buckets)
 
     def __init__(self, stacks, aidxs, is_cols, shape, nx, p, n_groups, nnz,
-                 n_pad, device="cpu"):
-        self.device = torch.device(device)
+                 n_pad, device=DEFAULT):
+        self.device = resolve(device)
         self.stacks = tuple(tuple(t.to(self.device) for t in st)
                             for st in stacks)
         self.aidxs = tuple(tuple(int(a) for a in ai) for ai in aidxs)
@@ -82,9 +84,10 @@ class BucketedBandedProjector(LinearOperator):
 
     @classmethod
     def from_scipy_fan(cls, A, nx, views, angles=None, n_groups=64,
-                       dtype=None, lane_pad=128, n_buckets=4, device="cpu"):
+                       dtype=None, lane_pad=128, n_buckets=4, device=DEFAULT):
         """Pack an angle-major fan/parallel CSR matrix (rows = a*p + d).
         ``dtype``: None/float32 (exact), bfloat16, or "int8"."""
+        device = resolve(device)  # before the host work of packing
         kind = _storage(dtype)
         packs, idx, angles, p, n_pad = _pack_groups(A, nx, views, angles,
                                                     n_groups)
@@ -120,9 +123,10 @@ class BucketedBandedProjector(LinearOperator):
 
     @classmethod
     def from_numpy_stacks(cls, stacks, aidxs, is_cols, shape, nx, p,
-                          n_groups, nnz, n_pad, device="cpu"):
+                          n_groups, nnz, n_pad, device=DEFAULT):
         """Build from NumPy copies of another pack's stacks (for instance
         ``trips_tpu``'s, with bfloat16 as ml_dtypes arrays): same bytes."""
+        device = resolve(device)
         return cls([[_to_torch(a, device) for a in st] for st in stacks],
                    aidxs, is_cols, shape, nx, p, n_groups, nnz, n_pad,
                    device=device)
@@ -202,11 +206,9 @@ class BucketedBandedProjector(LinearOperator):
         return img[:n, :n].reshape(-1).to(yv.dtype)
 
     def normal_matvec(self, x):
-        """Fused A^T A: one K1 launch per bucket."""
-        n, npd = self.nx, self.n_pad
+        """Fused A^T A: one K1 launch over all buckets."""
+        n = self.nx
         X, XT = self._drive_images(x)
-        img = torch.zeros((npd, npd), dtype=torch.float32, device=x.device)
-        for W, S, P, sc, _, isc in self._buckets():
-            c = self._ata(XT if isc else X, W, S, P, self.n_groups, sc)
-            img += c.T if isc else c
+        img = self._ata(X, XT, [(W, S, P, sc, isc) for W, S, P, sc, _, isc
+                                in self._buckets()], self.n_groups)
         return img[:n, :n].reshape(-1).to(x.dtype)
