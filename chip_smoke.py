@@ -5,7 +5,8 @@ Run from the repository root: ``python3 chip_smoke.py``. It needs one
 card; without one it exits non-zero before printing any result.
 
 Two paths on the same tomo256x60 problem: the bucketed banded operator
-(kernels K1-K3, ``csrc/banded.cu``) and the shear-rotate fan projector
+(kernels K1-K3, ``csrc/banded.cu``, each one launch over all buckets of
+an apply) and the shear-rotate fan projector
 ``ShearFanProjector`` (K4-K6, ``csrc/shear.cu``). Phases, each failing the
 run by raising:
 
@@ -13,22 +14,26 @@ run by raising:
 1. build K1-K6 with nvcc, one process per source;
 2. each kernel against its plain PyTorch version at the main paths' shapes
    (256x256 image, 60 fan-beam views; banded: 32 line groups, 4 buckets
-   per drive orientation, float32, bfloat16 and int8 packs, K1 per bucket
-   and over all buckets in one launch, as the operator calls it; shear:
+   per drive orientation, float32, bfloat16 and int8 packs, K1-K3 per
+   bucket and over all buckets in one launch, as the operator calls them,
+   K2 the same to the bit from run to run; shear:
    C = 400, p_pad = 384, float32 and bfloat16 ``G``); the float32 banded
    operator against the host CSR matrix; the float32 shear operator against
    itself on the CPU; adjointness;
 3. the main paths: ``Tomography`` -> operator -> ``solvers.CGLS`` and
    ``krylov.cgls_normal``, held against the JAX package's results on the
-   same inputs, with launch counts showing the kernels ran;
+   same inputs, with launch counts showing the kernels ran, and the
+   launches of one ``matvec`` and one ``rmatvec``;
 4. times of each kernel against its plain version, the least time the
-   card could take for the same work (``bound_ms``) and, for K6, the
-   library's product pair (device time from ``torch.profiler``); applies
-   and solvers (CUDA events and synchronized host clocks);
-5. loop profiles of the solver paths that run K1 and K6: device busy time
-   per iteration by kernel (``torch.profiler``) against the wall time per
-   iteration of the same solver in 4 (timed before any profiler session,
-   which leaves the host slower), and the device's idle share.
+   card could take for the same work (``bound_ms``) and the library's
+   call for the same function (device time from ``torch.profiler``): for
+   K1-K3 one apply of the pack's matrix as a float32 CSR tensor
+   (cuSPARSE), for K6 the product pair; applies and solvers (CUDA events
+   and synchronized host clocks);
+5. loop profiles of the solver paths that run K1-K3 and K6: device busy
+   time per iteration by kernel (``torch.profiler``) against the wall time
+   per iteration of the same solver in 4 (timed before any profiler
+   session, which leaves the host slower), and the device's idle share.
 
 The line before the last holds ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -74,9 +79,9 @@ B_NOISY_NORM = 15780.119089302763
 # order of sums, so two correct float32 runs differ by up to that much.
 KERNEL_RTOL, FINAL_ATOL, HISTORY_ATOL, INT8_ATOL = 1e-5, 1e-3, 6e-3, 1e-2
 REPLACES = {
-    "banded_ata": "trips_tpu/sparse/pallas_banded_kernel.py:440",
-    "banded_fwd": "trips_tpu/sparse/pallas_banded_kernel.py:333",
-    "banded_adj": "trips_tpu/sparse/pallas_banded_kernel.py:379",
+    "banded_ata": "trips_tpu/sparse/pallas_banded_kernel.py:442",
+    "banded_fwd": "trips_tpu/sparse/pallas_banded_kernel.py:335",
+    "banded_adj": "trips_tpu/sparse/pallas_banded_kernel.py:381",
 }
 # trips_tpu.solvers.CGLS(OP, b, 0, 30, 1e-6, x_true)["relError"] with OP =
 # trips_tpu ShearFanProjector(256, angles=theta, dtype=float32,
@@ -162,36 +167,43 @@ def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
-def device_ms(fn, reps, parts=None):
-    """Mean device milliseconds of the kernels ``fn()`` launches, from
+def device_ms(fn, reps, parts=None, sessions=3):
+    """Device milliseconds per call of the kernels ``fn()`` launches, from
     ``torch.profiler`` over ``reps`` calls after one warm-up (host gaps
-    between launches do not count); ``parts``, if given, receives the
-    milliseconds by kernel name."""
+    between launches do not count): the median of ``sessions`` profiled
+    sessions (a single session read up to 25% high now and then on an
+    H100); ``parts``, if given, receives that session's milliseconds by
+    kernel name."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     act = [torch.profiler.ProfilerActivity.CUDA]
-    # a session now and then records no kernel at all (seen once on an
-    # H100 among dozens of runs): profile again, at most three times
-    for _ in range(3):
-        with torch.profiler.profile(activities=act) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        events = [e for e in prof.key_averages() if e.self_device_time_total]
-        us = sum(e.self_device_time_total for e in events)
-        if us > 0:
-            break
-    check(us > 0, "the profiler saw no device time")
+    runs = []
+    for _ in range(sessions):
+        # a session now and then records no kernel at all (seen once on an
+        # H100 among dozens of runs): profile again, at most three times
+        for _ in range(3):
+            with torch.profiler.profile(activities=act) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            events = [e for e in prof.key_averages()
+                      if e.self_device_time_total]
+            us = sum(e.self_device_time_total for e in events)
+            if us > 0:
+                break
+        check(us > 0, "the profiler saw no device time")
+        runs.append((us, [(e.key, e.self_device_time_total)
+                          for e in events]))
+    us, events = sorted(runs, key=lambda r: r[0])[len(runs) // 2]
     if parts is not None:
-        for e in events:
+        for key, t in events:
             # "void (anonymous namespace)::ata_kernel<float>(...)" -> name
-            name = e.key.replace("(anonymous namespace)::", "")
+            name = key.replace("(anonymous namespace)::", "")
             name = re.split(r"[(<]", name.removeprefix("void "))[0]
             name = name.split("::")[-1]
-            parts[name] = parts.get(name, 0.0) + (
-                e.self_device_time_total / reps / 1e3)
+            parts[name] = parts.get(name, 0.0) + t / reps / 1e3
     return us / reps / 1e3
 
 
@@ -231,8 +243,39 @@ def shear_calls(op, gen, sk):
 def all_buckets(op, X):
     """``banded_ata_buckets`` arguments for ``op``'s pack: K1 over every
     bucket in one launch, as ``normal_matvec`` calls it."""
-    bks = [(*op._parts(st), isc) for st, isc in zip(op.stacks, op.is_cols)]
-    return X, X.T.contiguous(), bks, op.n_groups
+    return X, X.T.contiguous(), op._bks, op.n_groups
+
+
+def fwd_buckets(op, X):
+    """``banded_fwd_buckets`` arguments: K2 over every bucket in one
+    launch, as ``matvec`` calls it."""
+    return X, X.T.contiguous(), op._bks, op._aidx, op.det_count, op.n_groups
+
+
+def adj_buckets(op, Y):
+    """``banded_adj_buckets`` arguments: K3 on the ``(n_angles, p)``
+    sinogram ``Y`` over every bucket in one launch, as ``rmatvec`` calls
+    it."""
+    return Y, op._bks, op._aidx, op.n_groups
+
+
+def library_csr(M, dev):
+    """The float32 scipy CSR matrix ``M`` as a torch CSR tensor on ``dev``,
+    with int32 indices where torch's product takes them (else int64), and
+    the index type taken."""
+    import torch
+
+    for idx in (torch.int32, torch.int64):
+        t = torch.sparse_csr_tensor(
+            torch.from_numpy(M.indptr).to(idx), torch.from_numpy(M.indices)
+            .to(idx), torch.from_numpy(M.data.astype(np.float32)),
+            size=M.shape, device=dev, check_invariants=True)
+        try:
+            t @ torch.zeros(M.shape[1], device=dev)
+        except RuntimeError:
+            continue
+        return t, str(idx).removeprefix("torch.")
+    raise RuntimeError("torch takes no CSR matrix-vector product here")
 
 
 @contextlib.contextmanager
@@ -330,10 +373,30 @@ def main():
         max_abs["banded_ata"] = max(max_abs["banded_ata"],
                                     float((got - ref).abs().max()))
         check(e <= KERNEL_RTOL, f"banded_ata_buckets {kind} rel err {e!r}")
+        # K2 and K3 over all buckets, on the (n_angles, p) sinogram
+        p = op.det_count
+        Ys = torch.randn(op.shape[0] // p, p, device=dev, generator=gen)
+        e_all, outs = {}, {}
+        for name, args in (("banded_fwd", fwd_buckets(op, X)),
+                           ("banded_adj", adj_buckets(op, Ys))):
+            got = getattr(bk, name + "_buckets")(*args)
+            ref = getattr(bk, name + "_buckets_ref")(*args)
+            torch.cuda.synchronize()
+            check(got.shape == ref.shape, f"{name}_buckets {kind} shape")
+            e_all[name], outs[name] = rel(got, ref), got
+            max_abs[name] = max(max_abs[name],
+                                float((got - ref).abs().max()))
+            check(e_all[name] <= KERNEL_RTOL,
+                  f"{name}_buckets {kind} rel err {e_all[name]!r}")
+        again = bk.banded_fwd_buckets(*fwd_buckets(op, X))
+        check(torch.equal(again, outs["banded_fwd"]),
+              f"banded_fwd_buckets {kind} differs from run to run")
         print(f"[2] {kind} kernels vs plain, worst bucket rel err: "
               + ", ".join(f"{k} {v!r}" for k, v in worst.items())
-              + f"; K1 over all {len(op.stacks)} buckets in one launch "
-              f"{e!r}")
+              + f"; over all {len(op.stacks)} buckets in one launch each: "
+              f"banded_ata {e!r}, "
+              + ", ".join(f"{k} {v!r}" for k, v in e_all.items())
+              + "; banded_fwd bitwise the same in a second run")
 
     A64 = A.astype(np.float32).astype(np.float64)
     rng = np.random.default_rng(1)
@@ -410,6 +473,7 @@ def main():
     xt_norm = xt.norm()
     bk.reset_launch_counts()
     xs, info = CGLS(OP, bv, x0, CGLS_ITERS, TOL, x_true=x_true)
+    cgls_launches = dict(bk.launch_counts)
     hist = np.array(info["relError"])
     final, best = float(hist[-1]), float(hist.min())
     check(tuple(xs.shape) == (nx * ny, 1) and bool(torch.isfinite(xs).all()),
@@ -445,8 +509,16 @@ def main():
     print(f"[3] int8 vs float32 min relError gap {d8!r}")
     check(d8 <= INT8_ATOL, f"int8 min relError gap {d8!r}")
     launches = dict(bk.launch_counts)
-    print(f"[3] launches in the main path: {launches}")
+    print(f"[3] launches in the main path: {launches}; of which CGLS "
+          f"({info['its']} iterations and its set-up): {cgls_launches}")
     check(all(v > 0 for v in launches.values()), "a kernel never launched")
+    bk.reset_launch_counts()
+    f32.matvec(x)
+    f32.rmatvec(y)
+    per_apply = dict(bk.launch_counts)
+    print(f"[3] launches of one float32 matvec and one rmatvec: {per_apply}")
+    check(per_apply == {"banded_fwd": 1, "banded_adj": 1, "banded_ata": 0},
+          f"one launch per apply: {per_apply}")
 
     # the shear path: f32-G and bf16-G CGLS, then cgls_normal on K6 for
     # each G type (the bench's bf16 first), launches counted per G type
@@ -509,7 +581,7 @@ def main():
     # ---- 4. times ------------------------------------------------------
     def plain(op):
         p = copy.copy(op)
-        p._fwd, p._adj = bk.banded_fwd_ref, bk.banded_adj_ref
+        p._fwd, p._adj = bk.banded_fwd_buckets_ref, bk.banded_adj_buckets_ref
         p._ata = bk.banded_ata_buckets_ref
         return p
 
@@ -576,6 +648,8 @@ def main():
     kernel_ms, banded_bound = {}, {}
     for kind, op in ops.items():
         X = torch.randn(op.n_pad, op.n_pad, device=dev, generator=gen)
+        p = op.det_count
+        Ys = torch.randn(op.shape[0] // p, p, device=dev, generator=gen)
         calls = {name: [] for name in REPLACES}
         for stack, isc in zip(op.stacks, op.is_cols):
             args = bucket_args(op, stack, isc, X)
@@ -588,42 +662,42 @@ def main():
         def apply(fn, arglist):
             return lambda: [fn(*a) for a in arglist]
 
-        # one apply: K2 and K3 on every bucket in turn, K1 over all buckets
-        # in one launch, as the operator runs them (the float32 and
-        # bfloat16 packs exceed L2; int8 is 59 MB)
-        fused = all_buckets(op, X)
-        runs = {name + sfx: apply(getattr(bk, name + sfx), calls[name])
-                for name in ("banded_fwd", "banded_adj")
-                for sfx in ("", "_ref")}
-        runs["banded_ata"] = lambda: bk.banded_ata_buckets(*fused)
-        runs["banded_ata_ref"] = lambda: bk.banded_ata_buckets_ref(*fused)
-        k1_parts = {}
-        tot = {k: device_ms(f, 10, k1_parts if k == "banded_ata" else None)
-               for k, f in runs.items()}
+        # one apply: each kernel over all buckets in one launch, as the
+        # operator runs them (the float32 and bfloat16 packs exceed L2;
+        # int8 is 59 MB)
+        full = {"banded_fwd": fwd_buckets(op, X),
+                "banded_adj": adj_buckets(op, Ys),
+                "banded_ata": all_buckets(op, X)}
+        runs = {name + sfx: (lambda f, a: lambda: f(*a))(
+                    getattr(bk, name + "_buckets" + sfx), full[name])
+                for name in REPLACES for sfx in ("", "_ref")}
+        by_kernel = {name: {} for name in REPLACES}
+        tot = {k: device_ms(f, 10, by_kernel.get(k)) for k, f in runs.items()}
         events = {name: cuda_ms(runs[name], 20) for name in REPLACES}
         kernel_ms[kind] = tot
-        # least bytes: every stored weight, S, Pm and scales once, the image
-        # in, the sinogram or image out; 2 flops per nonzero weight and pass
+        # least bytes: every stored weight, S, Pm, scales and angle ids
+        # once, the image in, the sinogram or image out (once); 2 flops per
+        # nonzero weight and pass
         pack = sum(nbytes(*st) for st in op.stacks)
+        ids = nbytes(*op._aidx)
         nz = sum(int((st[0] != 0).sum()) for st in op.stacks)
         img = op.n_pad * op.n_pad * 4
-        sino = sum(st[0].shape[0] * st[0].shape[3] * 4 for st in op.stacks)
+        sino = nbytes(Ys)
         banded_bound[kind] = {
             "banded_ata": bound(pack + 2 * img, 4 * nz, F32_FLOPS),
-            "banded_fwd": bound(pack + img + sino, 2 * nz, F32_FLOPS),
-            "banded_adj": bound(pack + sino + len(op.stacks) * img, 2 * nz,
-                                F32_FLOPS)}
+            "banded_fwd": bound(pack + ids + img + sino, 2 * nz, F32_FLOPS),
+            "banded_adj": bound(pack + ids + sino + img, 2 * nz, F32_FLOPS)}
         wbytes = sum(nbytes(st[0]) for st in op.stacks)
-        print(f"[4] {kind} one apply (W {wbytes} B, {nz} nonzero weights):")
+        print(f"[4] {kind} one apply (W {wbytes} B, {nz} nonzero weights), "
+              f"one launch per kernel:")
         for name in REPLACES:
             ms, (bms, by) = tot[name], banded_bound[kind][name]
             print(f"[4]   {name} {ms!r} ms ({wbytes / ms / 1e6!r} GB/s of "
                   f"W; event ms {events[name]!r}), bound {bms!r} ms "
-                  f"({by}), plain {tot[name + '_ref']!r} ms"
-                  + (f"; by kernel {k1_parts}" if name == "banded_ata"
-                     else ""))
-        # per bucket with L2 scrubbed before each run: K1 (one bucket per
-        # launch here) reads W once, K2 + K3 read it twice
+                  f"({by}), plain {tot[name + '_ref']!r} ms; by kernel "
+                  f"{by_kernel[name]}")
+        # per bucket with L2 scrubbed before each run, each kernel on one
+        # bucket (nb = 1): K1 reads W once, K2 + K3 read it twice
         for i, stack in enumerate(op.stacks):
             r = {name: cuda_ms(apply(getattr(bk, name), calls[name][i:i + 1]),
                                10, flush=scrub.zero_)
@@ -633,6 +707,32 @@ def main():
                   f"K1 {r['banded_ata']!r}, K2 + K3 "
                   f"{r['banded_fwd'] + r['banded_adj']!r} (K2 "
                   f"{r['banded_fwd']!r}, K3 {r['banded_adj']!r})")
+
+    # the library's call for K1-K3's functions at the apply level: the
+    # float32 pack's matrix as a CSR tensor (cuSPARSE); A^T its own CSR
+    M = f32.to_scipy().astype(np.float32).tocsr()
+    MT = M.T.tocsr()
+    (Mt, idx), (MTt, _) = library_csr(M, dev), library_csr(MT, dev)
+    xv = torch.randn(M.shape[1], device=dev, generator=gen)
+    yv = torch.randn(M.shape[0], device=dev, generator=gen)
+    lib_runs = {"banded_fwd": lambda: Mt @ xv, "banded_adj": lambda: MTt @ yv,
+                "banded_ata": lambda: MTt @ (Mt @ xv)}
+    library_ms = {k: device_ms(f, 10) for k, f in lib_runs.items()}
+    # least bytes of one CSR product: values and column indices once, the
+    # row pointers, the vector in and out
+    ib = np.dtype(idx).itemsize
+    csr_b = [m.nnz * (4 + ib) + (m.shape[0] + 1) * ib
+             + 4 * (m.shape[0] + m.shape[1]) for m in (M, MT)]
+    library_bound = {"banded_fwd": bound(csr_b[0], 2 * M.nnz, F32_FLOPS),
+                     "banded_adj": bound(csr_b[1], 2 * M.nnz, F32_FLOPS),
+                     "banded_ata": bound(sum(csr_b), 4 * M.nnz, F32_FLOPS)}
+    e_lib = max(rel(Mt @ xv, f32.matvec(xv)), rel(MTt @ yv, f32.rmatvec(yv)))
+    check(e_lib <= KERNEL_RTOL, f"CSR product vs the pack {e_lib!r}")
+    print(f"[4] library: the float32 pack's matrix as torch CSR ({idx} "
+          f"indices, nnz {M.nnz}), agrees with the kernels to {e_lib!r}: "
+          + "; ".join(f"{name} {library_ms[name]!r} ms (bound "
+                      f"{library_bound[name][0]!r} ms, "
+                      f"{library_bound[name][1]})" for name in REPLACES))
 
     shear_ms = {}
     for kind, op in shear_ops.items():
@@ -698,15 +798,17 @@ def main():
           f"{smi('clocks.sm,power.draw,temperature.gpu')}")
 
     # ---- 5. loop profiles ----------------------------------------------
-    loops = [(f"banded {kind} cgls_normal", ops[kind], False,
+    loops = [(f"banded {kind} cgls_normal", cgls_normal, ops[kind], False,
               ("banded", kind, "cgls_normal")) for kind in ("float32", "int8")]
-    loops += [(f"shear {kind} G cgls_normal K6", shear_ops[kind], True,
-               ("shear", kind, "cgls_normal K6"))
+    loops.append(("banded float32 cgls", cgls, ops["float32"], False,
+                  ("banded", "float32", "cgls")))
+    loops += [(f"shear {kind} G cgls_normal K6", cgls_normal, shear_ops[kind],
+               True, ("shear", kind, "cgls_normal K6"))
               for kind in ("bfloat16", "float32")]
-    for label, op, on, key in loops:
+    for label, solver, op, on, key in loops:
         wall = kernel_wall[key]
         with shear_ata(on):
-            busy, by_kernel = loop_profile(cgls_normal, op, bv, x0)
+            busy, by_kernel = loop_profile(solver, op, bv, x0)
         top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:5]
         print(f"[5] {label}: device busy {busy * 1e3!r} us/iter, wall "
               f"{wall * 1e3!r} us/iter, idle share {1 - busy / wall!r}; "
@@ -725,9 +827,14 @@ def main():
                      launches[name], max_abs[name],
                      kernel_ms["float32"][name],
                      kernel_ms["float32"][name + "_ref"],
-                     banded_bound["float32"][name], None,
+                     banded_bound["float32"][name], library_ms[name],
                      storage="float32",
-                     ms_by_storage={k: v[name] for k, v in kernel_ms.items()})
+                     ms_by_storage={k: v[name] for k, v in kernel_ms.items()},
+                     bound_ms_by_storage={k: v[name][0]
+                                          for k, v in banded_bound.items()},
+                     library="float32 CSR (torch.sparse_csr_tensor, "
+                             f"{idx} indices)",
+                     library_bound_ms=library_bound[name][0])
                for name in ("banded_ata", "banded_fwd", "banded_adj")]
     for kind in ("bfloat16", "float32"):  # the bench's G type first
         t = shear_ms[kind]

@@ -225,3 +225,108 @@ def test_banded_ata_every_bucket(cuda, geometries, geometry, dtype):
     assert bk.launch_counts["banded_ata"] == before + 1
     ref = bk.banded_ata_buckets_ref(X, XT, buckets, op.n_groups)
     assert _rel(got, ref) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", KINDS)
+@pytest.mark.parametrize("geometry", ["tomo256x60", "nx300"])
+def test_banded_fwd_adj_buckets(cuda, geometries, geometry, dtype):
+    """K2 and K3 over every bucket of the pack in one launch each (the
+    operator's calls, with the angle ids and the ``cols`` buckets), and on
+    each bucket alone (nb = 1), against their plain versions; K2 is the
+    same to the bit from run to run (its sums run in a fixed order)."""
+    A, nx, theta = geometries[geometry]
+    op = BucketedBandedProjector.from_scipy_fan(
+        A, nx, None, angles=theta, n_groups=32, dtype=dtype, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    X = torch.randn(op.n_pad, op.n_pad, device=cuda, generator=g)
+    XT = X.T.contiguous()
+    p = op.det_count
+    Y = torch.randn(op.shape[0] // p, p, device=cuda, generator=g)
+    bks, ids = op._bks, op._aidx
+    assert any(b[4] for b in bks) and not all(b[4] for b in bks)
+    before = dict(bk.launch_counts)
+    y = bk.banded_fwd_buckets(X, XT, bks, ids, p, op.n_groups)
+    img = bk.banded_adj_buckets(Y, bks, ids, op.n_groups)
+    assert bk.launch_counts["banded_fwd"] == before["banded_fwd"] + 1
+    assert bk.launch_counts["banded_adj"] == before["banded_adj"] + 1
+    assert _rel(y, bk.banded_fwd_buckets_ref(X, XT, bks, ids, p,
+                                             op.n_groups)) <= 1e-5
+    assert _rel(img, bk.banded_adj_buckets_ref(Y, bks, ids,
+                                               op.n_groups)) <= 1e-5
+    assert torch.equal(y, bk.banded_fwd_buckets(X, XT, bks, ids, p,
+                                                op.n_groups))
+    for W, S, P, sc, isc in bks:
+        inp = XT if isc else X
+        Yb = torch.randn(W.shape[0], W.shape[3], device=cuda, generator=g)
+        for name, v in (("banded_fwd", inp), ("banded_adj", Yb)):
+            got = getattr(bk, name)(v, W, S, P, op.n_groups, sc)
+            ref = getattr(bk, name + "_ref")(v, W, S, P, op.n_groups, sc)
+            assert _rel(got, ref) <= 1e-5, (name, tuple(W.shape))
+
+
+@pytest.mark.parametrize("dtype", KINDS)
+def test_banded_adjointness(cuda, geometries, dtype):
+    """<Ax, y> = <x, A'y> through one K2 and one K3 launch, tomo256x60."""
+    A, nx, theta = geometries["tomo256x60"]
+    op = BucketedBandedProjector.from_scipy_fan(
+        A, nx, None, angles=theta, n_groups=32, dtype=dtype, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(op.shape[1], device=cuda, generator=g)
+    y = torch.randn(op.shape[0], device=cuda, generator=g)
+    Ax, Aty = op.matvec(x), op.rmatvec(y)
+    gap = abs(float(Ax.double() @ y.double())
+              - float(x.double() @ Aty.double()))
+    assert gap <= 1e-5 * float(Ax.double().norm() * y.double().norm())
+
+
+@pytest.mark.parametrize("name", ["banded_fwd", "banded_adj"])
+def test_refused_plan_raises(cuda, name, monkeypatch):
+    """A plan the kernel cannot run (parts beyond a 16-block cluster for
+    K2; a chunk past a TMA box's 256 lines for K3) raises; nothing falls
+    back to the plain version."""
+    op = _op(cuda, None)
+    true_plan = bk.launch_plan
+
+    def bad_plan(kernel, taps, n, itemsize):
+        pl = true_plan(kernel, taps, n, itemsize)
+        if kernel == "banded_fwd":
+            return {**pl, "parts": 32, "lines": -(-n // 32)}
+        return {**pl, "buckets": [{**b, "chunk_lines": 300}
+                                  for b in pl["buckets"]]}
+
+    monkeypatch.setattr(bk, "launch_plan", bad_plan)
+    X = torch.zeros(op.n_pad, op.n_pad, device=cuda)
+    Y = torch.zeros(op.shape[0] // op.det_count, op.det_count, device=cuda)
+    before = dict(bk.launch_counts)
+    with pytest.raises(RuntimeError, match=f"{name} launch failed"):
+        if name == "banded_fwd":
+            bk.banded_fwd_buckets(X, X.T.contiguous(), op._bks, op._aidx,
+                                  op.det_count, op.n_groups)
+        else:
+            bk.banded_adj_buckets(Y, op._bks, op._aidx, op.n_groups)
+    assert bk.launch_counts == before
+
+
+def test_checked_buckets_are_kept_weakly(cuda):
+    """The operator's buckets are checked once and their launch arguments
+    kept; a sequence holding another tensor is checked again, and nothing
+    kept holds a pack alive."""
+    import gc
+    import weakref
+
+    op = _op(cuda, None)
+    p = op.det_count
+    X = torch.zeros(op.n_pad, op.n_pad, device=cuda)
+    args = (X, X.T.contiguous(), op._bks, op._aidx, p, op.n_groups)
+    bk.banded_fwd_buckets(*args)
+    kept = len(bk._PREPARED)
+    bk.banded_fwd_buckets(*args)
+    assert len(bk._PREPARED) == kept
+    W, S, P, sc, isc = op._bks[0]
+    bad = ((W, S.long(), P, sc, isc),) + op._bks[1:]
+    with pytest.raises(TypeError, match="S must be"):
+        bk.banded_fwd_buckets(X, args[1], bad, op._aidx, p, op.n_groups)
+    gone = weakref.ref(W)
+    del W, S, P, sc, bad, args, op
+    gc.collect()
+    assert gone() is None

@@ -1,12 +1,13 @@
-"""What the redesigned K1 and K6 wrappers compute on the host, and the
+"""What the redesigned K1-K3 and K6 wrappers compute on the host, and the
 entry points' device default, on the CPU.
 
 - ``shear_kernels.k_split``: K6's split of the C*C axis covers ``[0, K)``
   exactly once, in ascending block order (the order its partials are
   summed), in whole tiles (64 rows, as ``csrc/shear.cu`` has them).
-- ``banded_kernels.ata_launch_plan``: K1's cluster, chunks and TMA boxes
-  for every bucket of tomo256x60 (n = 256) and of nx = 300 (n = 384, 20
-  views) stay within the 227 KB of shared memory a block may have.
+- ``banded_kernels.launch_plan``: K1's cluster, and K2's and K3's parts,
+  chunks and TMA boxes for every bucket of tomo256x60 (n = 256) and of
+  nx = 300 (n = 384, 20 views) stay within the 227 KB of shared memory a
+  block may have; a plan that cannot fit is refused.
 - The 3xTF32 split of K6's float32 path, emulated by rounding mantissas to
   TF32 in torch: hi.hi + hi.lo + lo.hi is within 1e-6 of the float64
   product (single TF32 is not).
@@ -27,8 +28,8 @@ from trips_tpu_torch.operators.shear_kernels import k_split
 from trips_tpu_torch.problems import (Tomography, device_sparse_operator,
                                       fan_beam_matrix)
 from trips_tpu_torch.sparse import BucketedBandedProjector
-from trips_tpu_torch.sparse.banded_kernels import (SMEM_BYTES,
-                                                   ata_launch_plan, ata_plan)
+from trips_tpu_torch.sparse.banded_kernels import (SMEM_BYTES, launch_plan,
+                                                   tile_plan)
 
 
 @pytest.mark.parametrize("K,blocks", [(160000, 132), (10000, 132),
@@ -66,27 +67,59 @@ def geometries():
 def test_ata_plan_fits_shared_memory(geometries, geometry, itemsize):
     taps, n = geometries[geometry]
     assert n == {"tomo256x60": 256, "nx300": 384}[geometry]
-    pl = ata_launch_plan(tuple(taps), n, itemsize)
-    assert pl["cluster"] in (1, 2, 4, 8, 16) and pl["det"] in (32, 64)
-    assert pl["cluster"] * pl["lines"] >= n
+    pl = launch_plan("banded_ata", tuple(taps), n, itemsize)
+    assert pl["parts"] in (1, 2, 4, 8, 16) and pl["det"] in (32, 64)
+    assert pl["parts"] * pl["lines"] >= n
     assert pl["smem_bytes"] <= SMEM_BYTES
     for T, b in zip(taps, pl["buckets"]):
-        assert b["cluster"] == pl["cluster"] and b["lines"] == pl["lines"]
+        assert b["parts"] == pl["parts"] and b["lines"] == pl["lines"]
         assert b["chunks"] * b["chunk_lines"] >= b["lines"]
         assert T % b["taps_per_box"] == 0 and b["taps_per_box"] <= 256
         assert b["chunk_lines"] <= 256
         assert b["smem_bytes"] <= pl["smem_bytes"]
     if geometry == "tomo256x60":
         # bf16 and int8 slabs come in one load; float32 tiles (64
-        # detectors) in at most two chunks, the first reloaded from L2
-        most = 2 if itemsize == 4 else 1
+        # detectors, 26 KB slabs) in at most three chunks, all but the
+        # last reloaded from L2
+        most = 3 if itemsize == 4 else 1
         assert all(b["chunks"] <= most for b in pl["buckets"])
 
 
 def test_ata_plan_refuses_what_does_not_fit():
-    assert ata_plan(15, 12288, 4)["chunks"] > 1  # streamed in chunks
+    assert tile_plan("banded_ata", 15, 12288, 4)["chunks"] > 1  # in chunks
     with pytest.raises(ValueError, match="shared memory"):
-        ata_plan(2000, 256, 4)
+        tile_plan("banded_ata", 2000, 256, 4)
+
+
+@pytest.mark.parametrize("itemsize", [4, 2, 1])
+@pytest.mark.parametrize("geometry", ["tomo256x60", "nx300"])
+@pytest.mark.parametrize("kernel", ["banded_fwd", "banded_adj"])
+def test_fwd_adj_plans_fit_shared_memory(geometries, kernel, geometry,
+                                         itemsize):
+    """K2's parts are a cluster (at most 16 blocks); K3's are independent
+    blocks. Each TMA box is legal: at most 256 per dimension, its tap count
+    a divisor of T, rows of 16-byte multiples."""
+    taps, n = geometries[geometry]
+    pl = launch_plan(kernel, tuple(taps), n, itemsize)
+    assert pl["det"] in (32, 64) and pl["det"] * itemsize % 16 == 0
+    assert pl["parts"] * pl["lines"] >= n and pl["lines"] >= 1
+    if kernel == "banded_fwd":
+        assert pl["parts"] in (1, 2, 4, 8, 16)
+    assert pl["smem_bytes"] <= SMEM_BYTES
+    for T, b in zip(taps, pl["buckets"]):
+        assert b["parts"] == pl["parts"] and b["lines"] == pl["lines"]
+        assert b["chunks"] * b["chunk_lines"] >= b["lines"]
+        assert 1 <= b["chunk_lines"] <= 256
+        assert T % b["taps_per_box"] == 0 and b["taps_per_box"] <= 256
+        assert b["smem_bytes"] == T * b["chunk_lines"] * pl["det"] * itemsize
+        assert b["smem_bytes"] <= pl["smem_bytes"]
+
+
+@pytest.mark.parametrize("kernel", ["banded_fwd", "banded_adj"])
+def test_fwd_adj_plans_refuse_what_does_not_fit(kernel):
+    assert tile_plan(kernel, 15, 12288, 4)["chunks"] > 1  # in chunks
+    with pytest.raises(ValueError, match="shared memory"):
+        tile_plan(kernel, 2000, 256, 4)
 
 
 def _tf32(x):

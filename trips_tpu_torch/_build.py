@@ -27,17 +27,14 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # symbol -> argtypes; every entry point returns a CUDA error code (int)
-# banded: kind, in, W, S, Pm, scales, out, na, T, n, p_pad, G, stream
-_BANDED = [_I] + [_P] * 6 + [_I] * 5 + [_P]
 # shear rotate and adjoint: kind, in, kx, fx, ky, fy, kq, out, na, C, stream
 _ROTATE = [_I] + [_P] * 7 + [_I] * 2 + [_P]
 ENTRY_POINTS = {
-    "trips_banded_fwd": _BANDED,
-    "trips_banded_adj": _BANDED,
-    # K1: kind, nb, 4 pointer arrays (W, S, Pm, scales), 5 int arrays (na,
-    # T, L, Tb, cols), X, XT, out, n, p_pad, G, det, cs, lines, stream
-    "trips_banded_ata": [_I, _I] + [_P] * 12 + [_I] * 6 + [_P],
-    "trips_banded_ata_max_buckets": [],
+    # K1-K3: op, kind, nb, 5 pointer arrays (W, S, Pm, scales, aidx), 5 int
+    # arrays (na, T, L, Tb, cols), in, inT, out, p, rows, n, p_pad, G, det,
+    # parts, lines, stream
+    "trips_banded": [_I] * 3 + [_P] * 13 + [_I] * 8 + [_P],
+    "trips_banded_max_buckets": [],
     "trips_shear_rotate": _ROTATE,
     "trips_shear_rotate_adj": _ROTATE,
     # kind, R, G, P, U, out, na, K, N, nsplit, chunk, stream

@@ -2,12 +2,13 @@
 
 Counterpart of ``trips_tpu/sparse/banded_buckets.py``: each drive group's
 angles are split into ``n_buckets`` buckets sorted by tap width ``T_a``, each
-stacked at its own ``T``. ``matvec`` runs K2 and ``rmatvec`` K3 once per
-bucket; the fused ``normal_matvec`` runs K1 once over all buckets
-(``banded_kernels``). Storage classes: float32 (the exact matrix), bfloat16,
-and int8 with per-angle absmax/127 scales. Applies compute in float32 on
-the dequantized weights whatever the input dtype, and return the input's
-dtype.
+stacked at its own ``T``. ``matvec`` (K2), ``rmatvec`` (K3) and the fused
+``normal_matvec`` (K1) each launch their kernel once over all buckets
+(``banded_kernels``); K2 writes and K3 reads each angle's sinogram row
+through the buckets' angle ids. Storage classes: float32 (the exact
+matrix), bfloat16, and int8 with per-angle absmax/127 scales. Applies
+compute in float32 on the dequantized weights whatever the input dtype, and
+return the input's dtype.
 """
 from __future__ import annotations
 
@@ -17,7 +18,8 @@ import torch
 from ..core.device import DEFAULT, resolve
 from ..core.linop import LinearOperator
 from .banded import _pack_groups, _stack_packs, dequant_slab
-from .banded_kernels import banded_adj, banded_ata_buckets, banded_fwd
+from .banded_kernels import (banded_adj_buckets, banded_ata_buckets,
+                             banded_fwd_buckets)
 
 
 def _storage(dtype):
@@ -55,8 +57,8 @@ class BucketedBandedProjector(LinearOperator):
     for.
     """
 
-    _fwd = staticmethod(banded_fwd)
-    _adj = staticmethod(banded_adj)
+    _fwd = staticmethod(banded_fwd_buckets)
+    _adj = staticmethod(banded_adj_buckets)
     _ata = staticmethod(banded_ata_buckets)
 
     def __init__(self, stacks, aidxs, is_cols, shape, nx, p, n_groups, nnz,
@@ -74,13 +76,16 @@ class BucketedBandedProjector(LinearOperator):
         self.n_groups = n_groups
         self.nnz = nnz
         na_tot = self.shape[0] // p
-        for ai in self.aidxs:
-            if any(not 0 <= a < na_tot for a in ai):
-                raise ValueError("angle ids must lie in [0, n_angles): "
-                                 "padded buckets (ap > 1) are not supported")
-        self._aidx_t = tuple(torch.tensor(ai, dtype=torch.long,
-                                          device=self.device)
-                             for ai in self.aidxs)
+        if sorted(a for ai in self.aidxs for a in ai) != list(range(na_tot)):
+            raise ValueError("the buckets' angle ids must hold each of "
+                             "[0, n_angles) once: padded buckets (ap > 1) "
+                             "are not supported")
+        # per bucket: (W, S, P, scales, is_cols) and its int32 angle ids
+        self._bks = tuple((*self._parts(st), isc)
+                          for st, isc in zip(self.stacks, self.is_cols))
+        self._aidx = tuple(torch.tensor(ai, dtype=torch.int32,
+                                        device=self.device)
+                           for ai in self.aidxs)
 
     @classmethod
     def from_scipy_fan(cls, A, nx, views, angles=None, n_groups=64,
@@ -179,36 +184,24 @@ class BucketedBandedProjector(LinearOperator):
         X[:n, :n] = x.reshape(n, n)
         return X, X.T.contiguous()
 
-    def _buckets(self):
-        """(W, S, P, scales, angle ids, is_cols) per bucket."""
-        for stack, aidx, isc in zip(self.stacks, self._aidx_t, self.is_cols):
-            yield (*self._parts(stack), aidx, isc)
-
     def matvec(self, x):
-        p = self.det_count
+        """One K2 launch over all buckets, each angle's row written in
+        place."""
         X, XT = self._drive_images(x)
-        y = torch.zeros((self.shape[0] // p, p), dtype=torch.float32,
-                        device=x.device)
-        for W, S, P, sc, aidx, isc in self._buckets():
-            yg = self._fwd(XT if isc else X, W, S, P, self.n_groups, sc)
-            y.index_copy_(0, aidx, yg[:, :p])
+        y = self._fwd(X, XT, self._bks, self._aidx, self.det_count,
+                      self.n_groups)
         return y.reshape(-1).to(x.dtype)
 
     def rmatvec(self, yv):
-        n, p, npd = self.nx, self.det_count, self.n_pad
-        Y = yv.reshape(-1, p).to(torch.float32)
-        img = torch.zeros((npd, npd), dtype=torch.float32, device=yv.device)
-        for W, S, P, sc, aidx, isc in self._buckets():
-            Yg = torch.nn.functional.pad(Y.index_select(0, aidx),
-                                         (0, W.shape[3] - p))
-            c = self._adj(Yg, W, S, P, self.n_groups, sc)
-            img += c.T if isc else c
+        """One K3 launch over all buckets, each reading its angles' rows."""
+        n = self.nx
+        Y = yv.reshape(-1, self.det_count).to(torch.float32).contiguous()
+        img = self._adj(Y, self._bks, self._aidx, self.n_groups)
         return img[:n, :n].reshape(-1).to(yv.dtype)
 
     def normal_matvec(self, x):
         """Fused A^T A: one K1 launch over all buckets."""
         n = self.nx
         X, XT = self._drive_images(x)
-        img = self._ata(X, XT, [(W, S, P, sc, isc) for W, S, P, sc, _, isc
-                                in self._buckets()], self.n_groups)
+        img = self._ata(X, XT, self._bks, self.n_groups)
         return img[:n, :n].reshape(-1).to(x.dtype)
