@@ -17,20 +17,27 @@ run by raising:
    per drive orientation, float32, bfloat16 and int8 packs, K1-K3 per
    bucket and over all buckets in one launch, as the operator calls them,
    K2 the same to the bit from run to run; shear:
-   C = 400, p_pad = 384, float32 and bfloat16 ``G``); the float32 banded
-   operator against the host CSR matrix; the float32 shear operator against
-   itself on the CPU; adjointness;
+   C = 400, p_pad = 384, float32 and bfloat16 ``G``; K4 and K5 the same to
+   the bit from run to run); the float32 banded operator against the host
+   CSR matrix; the float32 shear operator against itself on the CPU;
+   adjointness;
 3. the main paths: ``Tomography`` -> operator -> ``solvers.CGLS`` and
    ``krylov.cgls_normal``, held against the JAX package's results on the
    same inputs, with launch counts showing the kernels ran, and the
-   launches of one ``matvec`` and one ``rmatvec``;
+   launches of one ``matvec`` and one ``rmatvec``; the banded float32
+   ``cgls_normal`` run twice, its relError histories compared (K1 adds
+   with atomics: the card's run-to-run spread, printed, not gated);
 4. times of each kernel against its plain version, the least time the
    card could take for the same work (``bound_ms``) and the library's
    call for the same function (device time from ``torch.profiler``): for
    K1-K3 one apply of the pack's matrix as a float32 CSR tensor
    (cuSPARSE), for K6 the product pair; applies and solvers (CUDA events
-   and synchronized host clocks);
-5. loop profiles of the solver paths that run K1-K3 and K6: device busy
+   and synchronized host clocks); K4 and K5 at each tile shape of
+   ``shear_kernels.TILES`` (K5 also in chunks of 2, 4 and 8 views), each held
+   against its plain version; where ``_local/parent`` holds another
+   checkout of the repository (``git archive``), its K4 and K5 built and
+   timed in turns with these;
+5. loop profiles of the solver paths that run K1-K6: device busy
    time per iteration by kernel (``torch.profiler``) against the wall time
    per iteration of the same solver in 4 (timed before any profiler
    session, which leaves the host slower), and the device's idle share.
@@ -40,12 +47,14 @@ The line before the last holds ``{"kernels": [...]}``; the last line is
 """
 import contextlib
 import copy
+import importlib.util
 import json
 import os
 import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -108,9 +117,9 @@ JAX_SHEAR_CGLS_RELERR = [
 # semiconvergence tail more than on the banded path.
 BF16_RTOL, SHEAR_HISTORY_ATOL, SOLVE_GAP = 1e-3, 1.1e-2, 1e-2
 SHEAR_REPLACES = {
-    "shear_rotate": "trips_tpu/operators/pallas_shear.py:98",
-    "shear_rotate_adjoint": "trips_tpu/operators/pallas_shear.py:121",
-    "gcontract_ata": "trips_tpu/operators/pallas_shear.py:181",
+    "shear_rotate": "trips_tpu/operators/pallas_shear.py:99",
+    "shear_rotate_adjoint": "trips_tpu/operators/pallas_shear.py:122",
+    "gcontract_ata": "trips_tpu/operators/pallas_shear.py:183",
 }
 
 
@@ -154,6 +163,8 @@ def cuda_ms(fn, reps, flush=None):
 # them (dense).
 HBM_BPS, F32_FLOPS, BF16_FLOPS, TF32_FLOPS = 3.35e12, 67e12, 989e12, 495e12
 LOOP_ITERS = 20  # profiled iterations per solver loop (phase 5)
+# another checkout whose K4 and K5 phase 4 times beside these, if present
+PARENT = Path(__file__).resolve().parent / "_local" / "parent"
 
 
 def bound(nbytes, flops, peak):
@@ -276,6 +287,43 @@ def library_csr(M, dev):
             continue
         return t, str(idx).removeprefix("torch.")
     raise RuntimeError("torch takes no CSR matrix-vector product here")
+
+
+def parent_rotate(calls):
+    """{name: fn} running the K4 and K5 calls of ``shear_calls`` through
+    PARENT's kernel library (built from its sources by its own
+    ``_build.py``, entry points of the signature before plans:
+    kind, in, kx, fx, ky, fy, kq, out, na, C, stream), or None without
+    PARENT."""
+    import torch
+
+    if not (PARENT / "trips_tpu_torch" / "_build.py").exists():
+        return None
+    spec = importlib.util.spec_from_file_location(
+        "parent_build", PARENT / "trips_tpu_torch" / "_build.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    lib = mod.load()
+    kinds = {torch.float32: 0, torch.bfloat16: 1}
+    (_, (Q, *sh), kw), (_, (Gc, *_), _) = calls[:2]
+    na, C = Gc.shape[0], Gc.shape[-1]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def k4():
+        out = torch.empty((na, C, C), dtype=kw["out_dtype"], device=Q.device)
+        check(lib.trips_shear_rotate(
+            kinds[out.dtype], *(t.data_ptr() for t in (Q, *sh, out)), na, C,
+            stream) == 0, "parent K4 launch")
+        return out
+
+    def k5():
+        out = torch.empty((3, C, C), dtype=torch.float32, device=Q.device)
+        check(lib.trips_shear_rotate_adj(
+            kinds[Gc.dtype], *(t.data_ptr() for t in (Gc, *sh, out)), na, C,
+            stream) == 0, "parent K5 launch")
+        return out
+
+    return {"shear_rotate": k4, "shear_rotate_adjoint": k5}
 
 
 @contextlib.contextmanager
@@ -446,7 +494,12 @@ def main():
                     and name != "shear_rotate_adjoint" else KERNEL_RTOL)
             errs.append(f"{name} {e!r} (gate {gate})")
             check(e <= gate, f"{name} {kind} rel err {e!r}")
-        print(f"[2] shear {kind} kernels vs plain: " + ", ".join(errs))
+            if name != "gcontract_ata":
+                check(torch.equal(got, getattr(sk, name)(*args, **kw)),
+                      f"{name} {kind} differs from run to run")
+        print(f"[2] shear {kind} kernels vs plain: " + ", ".join(errs)
+              + "; shear_rotate and shear_rotate_adjoint bitwise the same "
+              "in a second run")
     s32, s32_cpu = shear_ops["float32"], shear_ops["float32"].to("cpu")
     for name, v in (("matvec", x), ("rmatvec", y), ("normal_matvec", x),
                     ("normal_matvec K6", x)):
@@ -505,6 +558,20 @@ def main():
         print(f"[3] cgls_normal {kind}: k {k}, relError final "
               f"{float((x_n - xt).norm() / xt_norm)!r}, min {min(errs)!r} "
               f"at iteration {int(np.argmin(errs)) + 1}")
+    # K1 adds with atomics: the same float32 solve again, its history
+    # against the first (printed, not gated)
+    runs = []
+    for _ in range(2):
+        s, errs = _cgn_init(ops["float32"], bv, x0), []
+        for it in range(1, CGN_ITERS + 1):
+            s = _cgn_chunk(ops["float32"], 0.0, s, it)
+            errs.append(float((s.x - xt).norm() / xt_norm))
+        runs.append(np.array(errs))
+    spread = np.abs(runs[0] - runs[1])
+    print(f"[3] cgls_normal float32 run twice: max |relError history "
+          f"difference| {float(spread.max())!r} at iteration "
+          f"{int(spread.argmax()) + 1}, final {float(spread[-1])!r} (K1's "
+          f"atomics; against the 1e-3 gates)")
     d8 = abs(cgn_min["int8"] - cgn_min["float32"])
     print(f"[3] int8 vs float32 min relError gap {d8!r}")
     check(d8 <= INT8_ATOL, f"int8 min relError gap {d8!r}")
@@ -794,6 +861,56 @@ def main():
         print(f"[4] shear {kind} G applies: " + ", ".join(
             f"{k} {v!r} ms" for k, v in applies.items()))
 
+    # K4 and K5 at each tile shape of the sweep, K5 also in chunks of 2, 4
+    # and 8 views (float32 partials summed by a second pass): each held
+    # against its plain version, then device ms per launch
+    taken = copy.deepcopy(sk.PLANS)
+    sweep = {}
+    for kind, op in shear_ops.items():
+        itemsize = op.G.element_size()
+        for name, args, kw in shear_calls(op, gen, sk)[:2]:
+            ref = getattr(sk, name + "_ref")(*args, **kw)
+            fn = (lambda f, a, k: lambda: f(*a, **k))(getattr(sk, name), args,
+                                                      kw)
+            gate = (BF16_RTOL if kind == "bfloat16" and name == "shear_rotate"
+                    else KERNEL_RTOL)
+            for tile in sk.TILES:
+                for chunk in ((None,) if name == "shear_rotate"
+                              else (None, 2, 4, 8)):
+                    sk.PLANS[name][itemsize] = {"tile": tile, "chunk": chunk}
+                    sk.clear_plans()
+                    e = rel(fn().float(), ref.float())
+                    check(e <= gate, f"{name} {kind} tile {tile} chunk "
+                          f"{chunk}: rel err {e!r}")
+                    sweep[kind, name, tile, chunk] = device_ms(fn, 10)
+            print(f"[4] sweep {name} {kind} (device ms; K5 chunk None: "
+                  f"whole quarters): " + "; ".join(
+                      f"{ty}x{tx} chunk {c} {v!r}"
+                      for (k, n, (ty, tx), c), v in sweep.items()
+                      if k == kind and n == name))
+    sk.PLANS.clear()
+    sk.PLANS.update(taken)
+    sk.clear_plans()
+
+    # the parent's K4 and K5 on the same inputs, in turns with these
+    parent_ms = {}
+    for kind, op in shear_ops.items():
+        calls = shear_calls(op, gen, sk)[:2]
+        fns = parent_rotate(calls)
+        if fns is None:
+            print(f"[4] parent: no checkout under {PARENT}")
+            break
+        for name, args, kw in calls:
+            ref = getattr(sk, name + "_ref")(*args, **kw)
+            e = rel(fns[name]().float(), ref.float())
+            mine = (lambda f, a, k: lambda: f(*a, **k))(getattr(sk, name),
+                                                        args, kw)
+            t = [device_ms(f, 10) for f in (fns[name], mine, mine, fns[name])]
+            parent_ms[kind, name] = (t[0], t[3])
+            print(f"[4] parent vs this {name} {kind} (device ms, in turns "
+                  f"parent, this, this, parent): {t!r}; parent rel err vs "
+                  f"plain {e!r}")
+
     print(f"[4] clocks.sm,power.draw,temperature.gpu after: "
           f"{smi('clocks.sm,power.draw,temperature.gpu')}")
 
@@ -805,6 +922,9 @@ def main():
     loops += [(f"shear {kind} G cgls_normal K6", cgls_normal, shear_ops[kind],
                True, ("shear", kind, "cgls_normal K6"))
               for kind in ("bfloat16", "float32")]
+    # the bench's path 4: K4, the two stage-B products and K5 per iteration
+    loops.append(("shear bfloat16 G cgls", cgls, shear_ops["bfloat16"], False,
+                  ("shear", "bfloat16", "cgls")))
     for label, solver, op, on, key in loops:
         wall = kernel_wall[key]
         with shear_ata(on):
@@ -836,6 +956,17 @@ def main():
                              f"{idx} indices)",
                      library_bound_ms=library_bound[name][0])
                for name in ("banded_ata", "banded_fwd", "banded_adj")]
+    def rotate_extra(name):
+        """K4/K5: the float32 canvas numbers, the plan and the parent's."""
+        if name == "gcontract_ata":
+            return {}
+        f = shear_ms["float32"]
+        return {"ms_f32": f[name], "plain_ms_f32": f[name + "_ref"],
+                "bound_ms_f32": f["bounds"][name][0],
+                "plans": {str(b): v for b, v in sk.PLANS[name].items()},
+                "parent_ms": {k: v for (k, n), v in parent_ms.items()
+                              if n == name} or None}
+
     for kind in ("bfloat16", "float32"):  # the bench's G type first
         t = shear_ms[kind]
         kernels += [entry(name, "trips_tpu_torch/csrc/shear.cu",
@@ -843,7 +974,8 @@ def main():
                           shear_abs[kind][name], t[name], t[name + "_ref"],
                           t["bounds"][name],
                           t["gcontract_ata_library"]
-                          if name == "gcontract_ata" else None, g_dtype=kind)
+                          if name == "gcontract_ata" else None, g_dtype=kind,
+                          **rotate_extra(name))
                     for name in SHEAR_REPLACES
                     if kind == "bfloat16" or name == "gcontract_ata"]
     print(json.dumps({"kernels": kernels}))

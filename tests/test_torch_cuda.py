@@ -6,7 +6,8 @@ Without a card every test here skips. On a card (no JAX needed):
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
 Float32 sums run in another order (and the banded adjoints with atomics),
-so the kernels agree with the plain versions to 1e-5 of the norm. A
+so the kernels agree with the plain versions to 1e-5 of the norm (K4 and
+K5 also to the bit from run to run: their sums run in a fixed order). A
 bfloat16 output (K4's canvases, K6's U before its second product) may
 round an entry one bf16 step the other way: 1e-3 there. K6's float32 path
 sums 3xTF32 products (each within 2^-22 of the float32 product), also held
@@ -111,6 +112,110 @@ def test_shear_kernels_match_plain(cuda, nx, g_dtype):
         assert got.device.type == "cuda" and got.dtype == ref.dtype
         assert _rel(got.float(), ref.float()) <= gate, name
     assert all(sk.launch_counts[k] == before[k] + 1 for k in before)
+
+
+@pytest.fixture
+def fresh_plans():
+    """K4/K5 plans made anew in the test and forgotten after it."""
+    sk.clear_plans()
+    yield
+    sk.clear_plans()
+
+
+def _rotate_inputs(cuda, nx, views, seed):
+    """K4/K5 inputs at the projector's shapes: its shifts, each k moved by a
+    random multiple of C (beyond +-C; the same shear mod C), views shuffled
+    so that ``kq`` is not grouped by quarter; random quarters and
+    cotangents."""
+    op = ShearFanProjector(nx, views=views, device=cuda)
+    C, na = op._C, op.n_angles
+    rng = np.random.default_rng(seed)
+    perm = torch.from_numpy(rng.permutation(na)).to(cuda)
+    kx, fx, ky, fy, kq = (t[perm].contiguous() for t in op._shifts())
+    kx = kx + C * torch.from_numpy(rng.integers(-3, 4, (na, C))).to(cuda,
+                                                                  torch.int32)
+    ky = ky - C * torch.from_numpy(rng.integers(-3, 4, (na, C))).to(cuda,
+                                                                  torch.int32)
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    Q = torch.randn(3, C, C, device=cuda, generator=g)
+    Gc = torch.randn(na, C, C, device=cuda, generator=g)
+    return Q, Gc, (kx, fx, ky, fy, kq)
+
+
+@pytest.mark.parametrize("dtype", G_DTYPES)
+@pytest.mark.parametrize("nx,views", [(32, 12), (64, 12), (256, 60)])
+def test_shear_rotate_staged_tile(cuda, fresh_plans, nx, views, dtype):
+    """K4 and K5 against their plain versions (C = 64, 96 and 400, none a
+    multiple of every tile), bitwise the same from run to run, one launch
+    each; K4's output and K5's input in ``dtype``."""
+    Q, Gc, sh = _rotate_inputs(cuda, nx, views, nx)
+    Gc = Gc.to(dtype)
+    before = dict(sk.launch_counts)
+    r = sk.shear_rotate(Q, *sh, out_dtype=dtype)
+    q = sk.shear_rotate_adjoint(Gc, *sh)
+    assert sk.launch_counts["shear_rotate"] == before["shear_rotate"] + 1
+    assert (sk.launch_counts["shear_rotate_adjoint"]
+            == before["shear_rotate_adjoint"] + 1)
+    tol = 1e-5 if dtype == torch.float32 else 1e-3
+    ref = sk.shear_rotate_ref(Q, *sh, out_dtype=dtype)
+    assert r.dtype == dtype and _rel(r.float(), ref.float()) <= tol
+    assert _rel(q, sk.shear_rotate_adjoint_ref(Gc, *sh)) <= 1e-5
+    assert torch.equal(r, sk.shear_rotate(Q, *sh, out_dtype=dtype))
+    assert torch.equal(q, sk.shear_rotate_adjoint(Gc, *sh))
+
+
+@pytest.mark.parametrize("chunk", [None, 8])
+@pytest.mark.parametrize("tile", sk.TILES)
+def test_shear_rotate_every_tile(cuda, fresh_plans, monkeypatch, tile, chunk):
+    """Each tile shape of the sweep, and K5 in whole quarters and in chunks
+    of 8 views (partials summed by the second pass), at C = 96, 30 views,
+    one quarter holding no view."""
+    plans = {k: {b: {"tile": tile, "chunk": chunk} for b in (4, 2)}
+             for k in sk.PLANS}
+    monkeypatch.setattr(sk, "PLANS", plans)
+    Q, Gc, (kx, fx, ky, fy, kq) = _rotate_inputs(cuda, 64, 30, 7)
+    kq = torch.where(kq == 2, torch.ones_like(kq), kq)
+    sh = (kx, fx, ky, fy, kq)
+    for dtype in G_DTYPES:
+        r = sk.shear_rotate(Q, *sh, out_dtype=dtype)
+        ref = sk.shear_rotate_ref(Q, *sh, out_dtype=dtype)
+        assert _rel(r.float(), ref.float()) <= (
+            1e-5 if dtype == torch.float32 else 1e-3), dtype
+        q = sk.shear_rotate_adjoint(Gc.to(dtype), *sh)
+        assert _rel(q, sk.shear_rotate_adjoint_ref(Gc.to(dtype), *sh)) <= 1e-5
+        assert not q[2].any()
+
+
+def test_shear_rotate_adjointness(cuda, fresh_plans):
+    """<K4 q, g> = <q, K5 g> in float32 at C = 400, 60 views."""
+    Q, Gc, sh = _rotate_inputs(cuda, 256, 60, 3)
+    lhs = float((sk.shear_rotate(Q, *sh).double() * Gc.double()).sum())
+    rhs = float((Q.double() * sk.shear_rotate_adjoint(Gc, *sh).double())
+                .sum())
+    scale = float(sk.shear_rotate(Q, *sh).double().norm() * Gc.double().norm())
+    assert abs(lhs - rhs) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("name", ["shear_rotate", "shear_rotate_adjoint"])
+def test_shear_rotate_refused_plan_raises(cuda, fresh_plans, monkeypatch,
+                                          name):
+    """A plan whose window is narrower than a tile is refused by the kernel;
+    nothing falls back to the plain version."""
+    true_plan = sk.rotate_plan
+
+    def bad_plan(*args, **kw):
+        pl = true_plan(*args, **kw)
+        return {**pl, "w2": pl["tile"][1]}
+
+    monkeypatch.setattr(sk, "rotate_plan", bad_plan)
+    Q, Gc, sh = _rotate_inputs(cuda, 32, 8, 0)
+    before = dict(sk.launch_counts)
+    with pytest.raises(RuntimeError, match=f"{name} launch failed"):
+        if name == "shear_rotate":
+            sk.shear_rotate(Q, *sh)
+        else:
+            sk.shear_rotate_adjoint(Gc, *sh)
+    assert sk.launch_counts == before
 
 
 @pytest.mark.parametrize("ata", ["0", "1"])

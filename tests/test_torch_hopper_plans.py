@@ -11,6 +11,12 @@ entry points' device default, on the CPU.
 - The 3xTF32 split of K6's float32 path, emulated by rounding mantissas to
   TF32 in torch: hi.hi + hi.lo + lo.hi is within 1e-6 of the float64
   product (single TF32 is not).
+- ``shear_kernels.rotate_plan``: K4's and K5's footprint per output tile
+  holds every tap of the 8-tap chain (brute force over every output of
+  tomo256x60, nx = 300 and random shifts beyond +-C, each tile shape of the
+  sweep); K5's view lists cover each view once; what the kernels cannot run
+  is refused; the staged tile, emulated in NumPy, computes the plain
+  versions' functions.
 - Every public entry point defaults to ``device="cuda"`` and, with no card,
   raises instead of running on the CPU.
 """
@@ -24,7 +30,11 @@ from trips_tpu_torch.operators import (OnTheFlyFanProjector,
                                        OnTheFlyParallelProjector,
                                        ShearFanProjector,
                                        ShearStackParallelProjector)
-from trips_tpu_torch.operators.shear_kernels import k_split
+from trips_tpu_torch.operators.shear_kernels import (SMEM_BYTES as
+                                                     ROTATE_SMEM_BYTES,
+                                                     TILES, k_split,
+                                                     rotate_plan,
+                                                     rotate_smem_bytes)
 from trips_tpu_torch.problems import (Tomography, device_sparse_operator,
                                       fan_beam_matrix)
 from trips_tpu_torch.sparse import BucketedBandedProjector
@@ -215,3 +225,192 @@ def test_from_scipy_fan_checks_the_device_before_packing(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         BucketedBandedProjector.from_scipy_fan(A, 8, None, angles=theta,
                                                n_groups=1)
+
+
+# ---- K4/K5: rotate_plan --------------------------------------------------
+def _fan_shifts(nx, views):
+    """(kx, ky, kq, C) of ``ShearFanProjector(nx, views=views)``, computed
+    as its constructor does, without building its ``G``."""
+    angles = np.linspace(0, np.pi, views, endpoint=False)
+    bulge = nx / np.sqrt(2.0) * np.sqrt(1.0 + np.tan(np.pi / 8) ** 2) + 3.0
+    C = -(-(int(np.ceil(2 * bulge)) + 2) // 16) * 16
+    cc = (C - 1) / 2.0
+    k = np.round(angles / (np.pi / 2)).astype(int)
+    phi = angles - k * (np.pi / 2)
+    kx = np.floor(np.tan(-phi / 2.0)[:, None] * (cc - np.arange(C))[None, :])
+    ky = np.floor(-np.sin(phi)[:, None] * (np.arange(C) - cc)[None, :])
+    return kx.astype(np.int64), ky.astype(np.int64), k, C
+
+
+def test_fan_shifts_are_the_operators():
+    op = ShearFanProjector(32, views=7, device="cpu")
+    kx, ky, kq, C = _fan_shifts(32, 7)
+    assert C == op._C and list(kq) == list(op._kq)
+    assert np.array_equal(kx, op._kx.numpy())
+    assert np.array_equal(ky, op._ky.numpy())
+
+
+def _shift_case(case):
+    if case == "tomo256x60":
+        kx, ky, kq, C = _fan_shifts(256, 60)
+        assert C == 400 and list(np.bincount(kq)) == [16, 29, 15]
+        return kx, ky, kq, C
+    if case == "nx300":
+        return _fan_shifts(300, 20)
+    # random smooth shifts of 12 views on C = 72, each moved by a random
+    # multiple of C (|k| up to 4C), quarters shuffled
+    rng = np.random.default_rng(5)
+    C, na = 72, 12
+    slope = rng.uniform(-1, 1, (2, na, 1))
+    base = np.floor(slope * (np.arange(C) - C / 2)).astype(np.int64)
+    kx, ky = base + C * rng.integers(-4, 5, (2, na, C))
+    return kx, ky, rng.permutation(np.arange(na) % 3), C
+
+
+def _chain_taps(kx, ky, i, j, C, adjoint):
+    """The 8-tap chain of output (i, j) as the plain versions read it: the
+    stage-2 columns and, for each, the stage-1 rows."""
+    if adjoint:
+        cols = [(j - kx[i]) % C, (j - kx[i] - 1) % C]
+        return [(c, [(i - ky[c]) % C, (i - ky[c] - 1) % C]) for c in cols]
+    cols = [(j + kx[i]) % C, (j + kx[i] + 1) % C]
+    return [(c, [(i + ky[c]) % C, (i + ky[c] + 1) % C]) for c in cols]
+
+
+@pytest.mark.parametrize("kernel", ["shear_rotate", "shear_rotate_adjoint"])
+@pytest.mark.parametrize("tile", TILES)
+@pytest.mark.parametrize("case", ["tomo256x60", "nx300", "random"])
+def test_rotate_plan_holds_every_tap(case, tile, kernel):
+    """Every output of every (view, tile): the window positions the kernel
+    computes (``csrc/shear.cu`` tile_view) lie inside the plan's footprint
+    and name the canvas columns and rows the 8-tap chain reads."""
+    kx, ky, kq, C = _shift_case(case)
+    adj = kernel == "shear_rotate_adjoint"
+    pl = rotate_plan(kernel, kx, ky, kq, C, tile)
+    ty, tx = tile
+    w2, r1 = pl["w2"], pl["r1"]
+    assert pl["smem_bytes"] == rotate_smem_bytes(ty, w2, r1) \
+        <= ROTATE_SMEM_BYTES
+    assert w2 >= tx + 1 and r1 >= ty + 1
+    ntx = -(-C // tx)
+    kxe, kye = (-kx - 1, -ky - 1) if adj else (kx, ky)
+    assert np.array_equal(pl["kx"], kxe % C) and pl["kx"].dtype == np.int32
+    assert np.array_equal(pl["ky"], kye % C)
+    ii, jj = np.meshgrid(np.arange(C), np.arange(C), indexing="ij")
+    tile_id = ii // ty * ntx + jj // tx
+    i0, j0 = ii // ty * ty, jj // tx * tx
+    for a in range(len(kq)):
+        xs, ys = pl["starts"][a, tile_id, 0], pl["starts"][a, tile_id, 1]
+        dk = (j0 + kxe[a, ii] - xs) % C
+        t = (jj - j0) + dk
+        assert t.max() + 1 < w2
+        want = _chain_taps(kx[a], ky[a], ii, jj, C, adj)
+        # K5's taps come turned round: window columns t + 1, t
+        for e, (c_want, rows_want) in enumerate(want):
+            tt = t + (1 - e if adj else e)
+            col = (xs + tt) % C
+            assert np.array_equal(col, c_want)
+            dy = (i0 + kye[a, col] - ys) % C
+            for u, r_want in enumerate(rows_want):
+                k = dy + (ii - i0) + (1 - u if adj else u)
+                assert k.max() < r1
+                assert np.array_equal((ys + k) % C, r_want)
+
+
+@pytest.mark.parametrize("chunk", [None, 1, 8])
+def test_rotate_plan_view_lists(chunk):
+    """K5's view order covers each view once, grouped by quarter in view
+    order with ``kq`` shuffled; chunks tile each quarter's run in order."""
+    kx, ky, kq, C = _fan_shifts(64, 30)
+    rng = np.random.default_rng(1)
+    perm = rng.permutation(len(kq))
+    kx, ky, kq = kx[perm], ky[perm], kq[perm]
+    kq[kq == 2] = 1  # quarter 2 has no view
+    pl = rotate_plan("shear_rotate_adjoint", kx, ky, kq, C, (16, 64), chunk)
+    order, chunks, qfirst = pl["order"], pl["chunks"], pl["qfirst"]
+    assert sorted(order) == list(range(len(kq)))
+    for z in range(3):
+        mine = chunks[qfirst[z]:qfirst[z + 1]]
+        views = [int(v) for b, n, _ in mine for v in order[b:b + n]]
+        assert views == [int(v) for v in np.flatnonzero(kq == z)]
+        assert all(1 <= n <= (chunk or len(kq)) for _, n, _ in mine)
+        assert [s for *_, s in mine] == list(range(qfirst[z], qfirst[z + 1]))
+        if not chunk:
+            assert len(mine) == min(1, len(views))
+    assert qfirst[-1] == len(chunks) and qfirst[2] == qfirst[3]  # quarter 2
+
+
+def test_rotate_plan_refuses_what_it_cannot_run():
+    kx, ky, kq, C = _fan_shifts(32, 8)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        rotate_plan("shear_rotate", kx, ky, kq, C, (8, 30))
+    with pytest.raises(ValueError, match="TY of 2"):
+        rotate_plan("shear_rotate", kx, ky, kq, C, (7, 64))
+    with pytest.raises(ValueError, match="within 32"):
+        rotate_plan("shear_rotate", kx, ky, kq, C, (128, 64))  # 1024 threads
+    with pytest.raises(ValueError, match="quarter ids"):
+        rotate_plan("shear_rotate_adjoint", kx, ky, kq + 1, C, (16, 64))
+    with pytest.raises(ValueError, match="shifts must be"):
+        rotate_plan("shear_rotate", kx[:, 1:], ky, kq, C, (16, 64))
+    # shifts with no order along a line need a window of the whole canvas
+    rng = np.random.default_rng(0)
+    C = 2048
+    kx, ky = rng.integers(-C, C, (2, 2, C))
+    with pytest.raises(ValueError, match="shared memory"):
+        rotate_plan("shear_rotate", kx, ky, np.array([0, 1]), C, (32, 64))
+
+
+def _emulate(kernel, src, kx, fx, ky, fy, kq, tile):
+    """K4 or K5 as ``csrc/shear.cu`` computes it, window by window, in
+    float64 NumPy: one view's tile at a time through the plan's footprint."""
+    adj = kernel == "shear_rotate_adjoint"
+    na, C = kx.shape
+    pl = rotate_plan(kernel, kx, ky, kq, C, tile)
+    ty, tx = tile
+    kxe, kye = pl["kx"], pl["ky"]  # reduced mod C, as the kernel reads them
+
+    def blend(f, lo, hi):
+        return (1 - f) * hi + f * lo if adj else (1 - f) * lo + f * hi
+
+    out = np.zeros((3 if adj else na, C, C))
+    ntx = -(-C // tx)
+    for a in range(na):
+        canvas = src[a] if adj else src[kq[a]]
+        for tid, (xs, ys) in enumerate(pl["starts"][a]):
+            i0, j0 = tid // ntx * ty, tid % ntx * tx
+            col = (xs + np.arange(pl["w2"])) % C
+            dy = (i0 + kye[a, col] - ys) % C
+            row = (ys + np.arange(pl["r1"])) % C
+            k = dy[None, :] + np.arange(ty + 1)[:, None]        # (ty+1, w2)
+            cc = (col[None, :] + kxe[a, row[k]]) % C
+            s1 = blend(fx[a, row[k]], canvas[row[k], cc],
+                       canvas[row[k], (cc + 1) % C])
+            s2 = blend(fy[a, col][None, :], s1[:-1], s1[1:])     # (ty, w2)
+            i = np.arange(i0, min(C, i0 + ty))
+            j = np.arange(j0, min(C, j0 + tx))
+            r = i - i0
+            t = (j - j0)[None, :] + ((j0 + kxe[a, i] - xs) % C)[:, None]
+            v = blend(fx[a, i][:, None], s2[r[:, None], t],
+                      s2[r[:, None], t + 1])
+            out[kq[a] if adj else a, i0:i0 + len(i), j0:j0 + len(j)] += v
+    return out
+
+
+@pytest.mark.parametrize("tile", [(8, 32), (16, 64)])
+@pytest.mark.parametrize("kernel", ["shear_rotate", "shear_rotate_adjoint"])
+def test_tile_routine_matches_plain(kernel, tile):
+    """The staged tile computes K4 and K5's functions: emulated on random
+    shifts (beyond +-C, quarters shuffled) against the plain versions."""
+    from trips_tpu_torch.operators import shear_kernels as sk
+
+    kx, ky, kq, C = _shift_case("random")
+    rng = np.random.default_rng(2)
+    fx, fy = rng.uniform(0, 1, (2,) + kx.shape)
+    src = rng.standard_normal((len(kq) if "adj" in kernel else 3, C, C))
+    got = _emulate(kernel, src, kx, fx, ky, fy, kq, tile)
+    args = [torch.from_numpy(v) for v in (src, kx, fx, ky, fy, kq)]
+    if kernel == "shear_rotate":
+        ref = sk.shear_rotate_ref(*args, out_dtype=torch.float64)
+    else:
+        ref = sk.shear_rotate_adjoint_ref(*args)
+    assert np.abs(got - ref.numpy()).max() <= 1e-12 * np.abs(got).max()

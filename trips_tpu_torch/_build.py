@@ -27,16 +27,18 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # symbol -> argtypes; every entry point returns a CUDA error code (int)
-# shear rotate and adjoint: kind, in, kx, fx, ky, fy, kq, out, na, C, stream
-_ROTATE = [_I] + [_P] * 7 + [_I] * 2 + [_P]
 ENTRY_POINTS = {
     # K1-K3: op, kind, nb, 5 pointer arrays (W, S, Pm, scales, aidx), 5 int
     # arrays (na, T, L, Tb, cols), in, inT, out, p, rows, n, p_pad, G, det,
     # parts, lines, stream
     "trips_banded": [_I] * 3 + [_P] * 13 + [_I] * 8 + [_P],
     "trips_banded_max_buckets": [],
-    "trips_shear_rotate": _ROTATE,
-    "trips_shear_rotate_adj": _ROTATE,
+    # K4: kind, Q, kx, fx, ky, fy, kq, starts, out, na, C, ty, tx, w2, r1,
+    # stream
+    "trips_shear_rotate": [_I] + [_P] * 8 + [_I] * 6 + [_P],
+    # K5: kind, g, kx, fx, ky, fy, order, chunks, starts, qfirst, partials,
+    # out, C, nchunks, ty, tx, w2, r1, stream
+    "trips_shear_rotate_adj": [_I] + [_P] * 11 + [_I] * 6 + [_P],
     # kind, R, G, P, U, out, na, K, N, nsplit, chunk, stream
     "trips_shear_ata": [_I] + [_P] * 5 + [_I] * 5 + [_P],
     "trips_shear_ata_k_tile": [],

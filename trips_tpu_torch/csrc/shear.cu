@@ -10,27 +10,57 @@
 //
 //   out(c) = (1 - f) * in((c + k) mod C) + f * in((c + k + 1) mod C)
 //
-// K4 (replaces rotate_all_pallas, trips_tpu/operators/pallas_shear.py:98):
+// K4 (replaces rotate_all_pallas, trips_tpu/operators/pallas_shear.py:99):
 // quarter canvas kq[a] -> x-shear, y-shear, x-shear -> (na, C, C), rounded
 // once to the output type. The TPU kernel keeps a whole canvas in VMEM and
 // rolls it three times; a 640 KB f32 canvas does not fit a block's shared
-// memory here. The three shears compose to an 8-tap gather from the
-// quarter canvas (2 taps per shear), so each thread evaluates one output
-// directly: the three quarter canvases (1.9 MB at C = 400) stay in L2 and
-// nothing intermediate reaches device memory. Bound: L2 gather latency
-// and the (na, C, C) output write; each output costs 8 gathers and 14
-// flops.
+// memory here. Its bound on this card is bytes: the (na, C, C) canvases
+// written once (19.2 MB in bf16 at C = 400, 60 views: 6 us at 3.35 TB/s),
+// the quarter canvases (1.9 MB) read from L2. What costs is the gathers'
+// index work: the three shears compose to 8 gathers per output.
 //
-// K5 (replaces rotate_all_adjoint_pallas, pallas_shear.py:121): the exact
+// The staged tile: one block per (view, TY x TX output tile). An output row
+// i reads the stage-2 row at columns (j + kx[i]) and one to the right; over
+// a tile those are one window of W2 columns (TX + 1 + the spread of kx over
+// the tile's rows). Window column c reads stage-1 rows i + ky[c] and one
+// below: TY + 1 rows per window column, R1 rows in all (TY + 1 + the spread
+// of ky over the window). The block loads one 16-byte record per window
+// row and column into shared memory, computes the window's stage-1 values
+// (2-tap gathers from the quarter canvas in L2, a thread's issued
+// together), then each thread the stage-2 values and the outputs of its
+// kRows x kVec patch, one vector store per row: ~2.3 canvas reads and
+// ~1.25 stage-2 blends per output instead of 8 and 2. rotate_plan
+// (operators/shear_kernels.py) makes the window sizes, each tile's start
+// and the shifts reduced mod C once per shift set in Python, so the kernel
+// computes no % and no window; it refuses a plan it cannot run.
+//
+// K5 (replaces rotate_all_adjoint_pallas, pallas_shear.py:122): the exact
 // transpose, out(c) = (1 - f) * g((c - k) mod C) + f * g((c - k - 1) mod C)
-// per stage, stages in reverse order: again an 8-tap gather per view. The
-// TPU carries each quarter's sum across a sequential grid; here one thread
-// owns one output of one quarter canvas and loops over the views of that
-// quarter in order, so the sum is deterministic and needs no atomics. The
-// output is float32. Bound: the gathers from the (na, C, C) cotangents
-// (19.2 MB in bf16 at 256x256/60 views), read once each from HBM.
+// per stage, stages in reverse order. With k' = -k - 1 that reads columns
+// c + k' and c + k' + 1 with the weights turned round, so K5 runs K4's tile
+// routine on g[a] with the plan's shifts (-k - 1) mod C and blends
+// (1 - f) * hi + f * lo. The TPU carries each quarter's sum across a
+// sequential grid. Here a block owns one tile and a chunk of one quarter's
+// views (the plan's order) and adds them in registers in that order:
+// deterministic, no atomics, no cluster, no view of another quarter
+// visited. Each chunk writes a float32 partial plane, and a second pass
+// sums a quarter's planes in chunk order. Chunks of 4 views are taken: on
+// an H100 (700 W) they ran 0.070-0.076 ms against 0.107-0.121 for a whole
+// quarter per block (written directly, no second pass) at 16x64 tiles,
+// where quarter 1's 29 views in one block set the tail.
+// Bound: the (na, C, C) cotangents read once (19.2 MB in bf16).
 //
-// K6 (replaces gcontract_ata_pallas, pallas_shear.py:181): with R (na, C*C)
+// Where the time goes (python3 -m trips_tpu_torch._ablate, which times
+// copies with parts patched out; an H100 at 700 W, bf16, the plans taken):
+// of K4's 0.058 ms, stage 1 takes 0.030 (0.011 of it the gathers), stages
+// 2 and 3 0.010, the shift records 0.006, launch and stores 0.011; of K5's
+// 0.077, stage 1 0.042 (0.025 the gathers, 0.011 the row records'
+// dependent loads), stages 2 and 3 0.012, the shift records (once per
+// view) 0.012, launch, stores and the second pass 0.010. Mapping stage 1's
+// lanes along one canvas row (coalesced gathers, three forms) ran slower
+// in every form: a lane per value, its gathers issued together, is kept.
+//
+// K6 (replaces gcontract_ata_pallas, pallas_shear.py:183): with R (na, C*C)
 // and G (C*C, p_pad) in one storage type T,
 //
 //   U   = R . G                 f32 sums, then rounded to T
@@ -87,111 +117,292 @@ __device__ __forceinline__ void st(__nv_bfloat16* p, size_t k, float v) {
   p[k] = __float2bfloat16(v);
 }
 
-// (j + k) mod C in [0, C) for j in [0, C) and any int k.
-__device__ __forceinline__ int wrap(int j, int k, int C) {
-  int c = j + k % C;
-  if (c < 0) c += C;
-  if (c >= C) c -= C;
-  return c;
-}
-__device__ __forceinline__ int inc(int c, int C) {
-  return c + 1 == C ? 0 : c + 1;
-}
-__device__ __forceinline__ int dec(int c, int C) {
-  return c == 0 ? C - 1 : c - 1;
+// ---- K4 and K5: the staged tile ---------------------------------------------
+constexpr int kVec = 4;              // neighbouring outputs per thread and row
+constexpr int kRows = 2;             // output rows per thread
+constexpr int kSeg = 4;              // stage-1 rows per thread and column
+constexpr int kRotMaxThreads = 512;
+// dynamic shared memory a block may have: 227 KB less 1 KB for K5's
+// static view list
+constexpr int kSmemMax = 231424;
+
+// The plan's sizes: canvas C, tile TY x TX, window columns W2, stage-1 rows
+// R1 (rotate_plan in operators/shear_kernels.py).
+struct Dims {
+  int C, ty, tx, w2, r1;
+};
+
+// Words per stage-1 row: window column t sits at (t % 4) Q + t / 4, Q the
+// least >= ceil(W2 / 4) with Q = 8 mod 32, so that 32 neighbouring columns
+// (stage 1's lanes) and columns 4 apart (stage 3's lanes) fall in distinct
+// banks.
+__host__ __device__ inline int rotate_quarter(int w2) {
+  const int q = (w2 + 3) / 4;
+  return q + ((8 - q % 32) + 32) % 32;
 }
 
-constexpr int kTileX = 32;  // canvas columns per rotate block
-constexpr int kTileY = 8;   // canvas rows per rotate block
-
-// K4: grid (ceil(C / 32), ceil(C / 8), na), block (32, 8); one output each.
-template <typename OT>
-__global__ void __launch_bounds__(kTileX * kTileY)
-    rotate_kernel(const float* __restrict__ Q, const int* __restrict__ kx,
-                  const float* __restrict__ fx, const int* __restrict__ ky,
-                  const float* __restrict__ fy, const int* __restrict__ kq,
-                  OT* __restrict__ out, int C) {
-  const int a = blockIdx.z;
-  const int j = blockIdx.x * kTileX + threadIdx.x;
-  const int i = blockIdx.y * kTileY + threadIdx.y;
-  if (i >= C || j >= C) return;
-  const float* q = Q + static_cast<size_t>(kq[a]) * C * C;
-  const int* kxa = kx + static_cast<size_t>(a) * C;
-  const float* fxa = fx + static_cast<size_t>(a) * C;
-  const int* kya = ky + static_cast<size_t>(a) * C;
-  const float* fya = fy + static_cast<size_t>(a) * C;
-  // third shear (x, row i) reads columns c0, c0 + 1 of the second stage
-  const float f3 = fxa[i];
-  const int c0 = wrap(j, kxa[i], C);
-  float s2[2];
-#pragma unroll
-  for (int t = 0; t < 2; ++t) {
-    const int col = t ? inc(c0, C) : c0;
-    // second shear (y, column col) reads rows r0, r0 + 1 of the first stage
-    const float f2 = fya[col];
-    const int r0 = wrap(i, kya[col], C);
-    float s1[2];
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const int row = u ? inc(r0, C) : r0;
-      // first shear (x, row `row`) reads the quarter canvas
-      const float f1 = fxa[row];
-      const int cc = wrap(col, kxa[row], C);
-      const float* qr = q + static_cast<size_t>(row) * C;
-      s1[u] = (1.f - f1) * ld(qr, cc) + f1 * ld(qr, inc(cc, C));
-    }
-    s2[t] = (1.f - f2) * s1[0] + f2 * s1[1];
-  }
-  st(out, (static_cast<size_t>(a) * C + i) * C + j,
-     (1.f - f3) * s2[0] + f3 * s2[1]);
+// 32-bit words of shared memory one tile takes (rotate_plan's smem_bytes is
+// four times this).
+__host__ __device__ inline long long rotate_smem_words(int ty, int w2,
+                                                       int r1) {
+  return 4LL * r1 + 4LL * w2 + 2LL * ty +
+         (ty + 1LL) * 4 * rotate_quarter(w2);
 }
 
-// K5: grid (ceil(C / 32), ceil(C / 8), 3), block (32, 8). Thread (r, c) of
-// quarter z sums the transposed chain over the views with kq[a] == z, in
-// view order, and writes its float32 output once.
-template <typename IT>
-__global__ void __launch_bounds__(kTileX * kTileY)
-    rotate_adj_kernel(const IT* __restrict__ Gc, const int* __restrict__ kx,
-                      const float* __restrict__ fx, const int* __restrict__ ky,
-                      const float* __restrict__ fy, const int* __restrict__ kq,
-                      float* __restrict__ out, int na, int C) {
-  const int z = blockIdx.z;
-  const int c = blockIdx.x * kTileX + threadIdx.x;
-  const int r = blockIdx.y * kTileY + threadIdx.y;
-  if (r >= C || c >= C) return;
-  float acc = 0.f;
-  for (int a = 0; a < na; ++a) {
-    if (kq[a] != z) continue;
-    const IT* g = Gc + static_cast<size_t>(a) * C * C;
-    const int* kxa = kx + static_cast<size_t>(a) * C;
-    const float* fxa = fx + static_cast<size_t>(a) * C;
-    const int* kya = ky + static_cast<size_t>(a) * C;
-    const float* fya = fy + static_cast<size_t>(a) * C;
-    // transpose of the first x-shear (row r) reads columns m, m - 1
-    const float f3 = fxa[r];
-    const int m = wrap(c, -kxa[r], C);
-    float s2[2];
-#pragma unroll
-    for (int t = 0; t < 2; ++t) {
-      const int col = t ? dec(m, C) : m;
-      // transpose of the y-shear (column col) reads rows rr, rr - 1
-      const float f2 = fya[col];
-      const int rr = wrap(r, -kya[col], C);
-      float s1[2];
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int row = u ? dec(rr, C) : rr;
-        // transpose of the last x-shear (row `row`) reads the cotangent
-        const float f1 = fxa[row];
-        const int cc = wrap(col, -kxa[row], C);
-        const IT* gr = g + static_cast<size_t>(row) * C;
-        s1[u] = (1.f - f1) * ld(gr, cc) + f1 * ld(gr, dec(cc, C));
+struct Tile {
+  int4* rw;   // [R1] row window: row * C, its x-shift, blend (bits)
+  int4* cw;   // [W2] window column: canvas column, its row offset dy, blend
+  int2* tr;   // [TY] output row: window column of its first tap minus its
+              //      column in the tile, blend
+  float* s1;  // [(TY + 1) x 4Q] stage 1: row u of window column t at
+              //      u 4Q + (t % 4) Q + t / 4
+  int q;
+};
+
+__device__ __forceinline__ Tile carve(float* p, const Dims& d) {
+  Tile s;
+  s.rw = reinterpret_cast<int4*>(p);
+  s.cw = reinterpret_cast<int4*>(p + 4 * d.r1);
+  s.tr = reinterpret_cast<int2*>(p + 4 * (d.r1 + d.w2));
+  s.s1 = p + 4 * (d.r1 + d.w2) + 2 * d.ty;
+  s.q = rotate_quarter(d.w2);
+  return s;
+}
+
+// a - C if a >= C; a + C if a < 0 (a in (-C, 2C)).
+__device__ __forceinline__ int fold(int a, int C) {
+  return a >= C ? a - C : (a < 0 ? a + C : a);
+}
+
+// One 2-tap blend of the taps at c + k (lo) and c + k + 1 (hi), the
+// expression of the plain versions: K4 (1 - f) in(c + k) + f in(c + k + 1);
+// K5, whose plan shifts are k' = -k - 1, (1 - f) g(c - k) + f g(c - k - 1).
+template <bool ADJ>
+__device__ __forceinline__ float blend(float f, float lo, float hi) {
+  return ADJ ? (1.f - f) * hi + f * lo : (1.f - f) * lo + f * hi;
+}
+
+// The tile routine of K4 and K5: one view's TY x TX tile at (i0, j0) of
+// `src` (one C x C canvas) through the three shears, with the view's plan
+// shifts kx, ky (reduced mod C) and blends fx, fy; (xs, ys) are the tile's
+// first window column and first window row from the plan. Thread (r, jl)
+// gets outputs (i0 + r + m, j0 + jl + q) in v[m][q]. Starts with a barrier,
+// so a loop over views may call it again. What it costs is instructions
+// per output (the header's ablations), hence no % and one shared-memory
+// record per line of shifts.
+template <bool ADJ, typename IT>
+__device__ __forceinline__ void tile_view(
+    const IT* __restrict__ src, const int* __restrict__ kxa,
+    const float* __restrict__ fxa, const int* __restrict__ kya,
+    const float* __restrict__ fya, int xs, int ys, int i0, int j0,
+    const Dims& d, const Tile& s, int r, int jl,
+    float (&v)[kRows][kVec]) {
+  const int tid = threadIdx.x, nt = blockDim.x, C = d.C;
+  __syncthreads();  // the last view's stage 3 is done with shared memory
+  // the row window, the window columns and the tile's rows, in one pass,
+  // each part starting on a warp
+  const int p1 = (d.r1 + 31) & ~31, p2 = p1 + ((d.w2 + 31) & ~31);
+  for (int e = tid; e < p2 + d.ty; e += nt) {
+    if (e < p1) {
+      if (e < d.r1) {
+        int w = ys + e;
+        while (w >= C) w -= C;
+        s.rw[e] = make_int4(w * C, kxa[w], __float_as_int(fxa[w]), 0);
       }
-      s2[t] = (1.f - f2) * s1[0] + f2 * s1[1];
+    } else if (e < p2) {
+      const int t = e - p1;
+      if (t < d.w2) {
+        int c = xs + t;
+        while (c >= C) c -= C;
+        s.cw[t] = make_int4(c, fold(i0 + kya[c] - ys, C),
+                            __float_as_int(fya[c]), 0);
+      }
+    } else {
+      const int m = e - p2, i = i0 + m;
+      // rows past the canvas: computed, not stored
+      s.tr[m] = i < C ? make_int2(fold(j0 + kxa[i] - xs, C),
+                                  __float_as_int(fxa[i]))
+                      : make_int2(0, 0);
     }
-    acc += (1.f - f3) * s2[0] + f3 * s2[1];
   }
-  out[(static_cast<size_t>(z) * C + r) * C + c] = acc;
+  __syncthreads();
+  // stage 1: row u of window column t is window row dy[t] + u, its x-shear
+  // read at column col[t] + kx (and the next) from `src`; a thread takes
+  // kSeg rows of one column, its gathers issued together
+  const int segs = (d.ty + kSeg) / kSeg, row4 = 4 * s.q;
+  for (int e = tid; e < segs * d.w2; e += nt) {
+    const int g = e / d.w2, t = e - g * d.w2, u0 = g * kSeg;
+    const int4 cw = s.cw[t];
+    float* out1 = s.s1 + (t & 3) * s.q + (t >> 2);
+    float lo[kSeg], hi[kSeg], f[kSeg];
+#pragma unroll
+    for (int m = 0; m < kSeg; ++m) {
+      if (u0 + m > d.ty) break;
+      const int4 rw = s.rw[cw.y + u0 + m];
+      int cc = cw.x + rw.y;
+      if (cc >= C) cc -= C;
+      const int c2 = cc + 1 == C ? 0 : cc + 1;
+      const IT* p = src + rw.x;
+      lo[m] = ld(p, cc);
+      hi[m] = ld(p, c2);
+      f[m] = __int_as_float(rw.z);
+    }
+#pragma unroll
+    for (int m = 0; m < kSeg; ++m) {
+      if (u0 + m > d.ty) break;
+      out1[(u0 + m) * row4] = blend<ADJ>(f[m], lo[m], hi[m]);
+    }
+  }
+  __syncthreads();
+  // stages 2 and 3: output (r, jl + q) reads the stage-2 values of window
+  // columns jl + q + dk[r] and the next, each a blend of stage-1 rows r and
+  // r + 1 of its column
+#pragma unroll
+  for (int m = 0; m < kRows; ++m) {
+    const int2 tr = s.tr[r + m];
+    const float f3 = __int_as_float(tr.y);
+    const float* a1 = s.s1 + (r + m) * row4;
+    float s2[kVec + 1];
+#pragma unroll
+    for (int q = 0; q <= kVec; ++q) {
+      const int t = jl + q + tr.x;
+      const int at = (t & 3) * s.q + (t >> 2);
+      s2[q] = blend<ADJ>(__int_as_float(s.cw[t].z), a1[at], a1[at + row4]);
+    }
+#pragma unroll
+    for (int q = 0; q < kVec; ++q) v[m][q] = blend<ADJ>(f3, s2[q], s2[q + 1]);
+  }
+}
+
+__device__ __forceinline__ void st_vec(float* p, const float (&v)[kVec]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void st_vec(__nv_bfloat16* p,
+                                       const float (&v)[kVec]) {
+  __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
+  __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
+  uint2 w;
+  w.x = *reinterpret_cast<uint32_t*>(&a);
+  w.y = *reinterpret_cast<uint32_t*>(&b);
+  *reinterpret_cast<uint2*>(p) = w;
+}
+
+// Thread (r, jl)'s outputs at canvas rows i .. i + kRows - 1, columns
+// j .. j + kVec - 1 of `plane`: vector stores where C keeps them aligned,
+// else one by one.
+template <typename T>
+__device__ __forceinline__ void store_tile(T* plane, int i, int j,
+                                           const float (&v)[kRows][kVec],
+                                           int C) {
+#pragma unroll
+  for (int m = 0; m < kRows; ++m) {
+    if (i + m >= C || j >= C) return;
+    T* p = plane + static_cast<size_t>(i + m) * C + j;
+    if (C % kVec == 0) {
+      st_vec(p, v[m]);
+    } else {
+#pragma unroll
+      for (int q = 0; q < kVec; ++q)
+        if (j + q < C) st(p, q, v[m][q]);
+    }
+  }
+}
+
+// Thread t's first output row and column in a tile of TX columns.
+__device__ __forceinline__ int2 thread_spot(int tx) {
+  const int per_row = tx / kVec;
+  const int rp = threadIdx.x / per_row;
+  return make_int2(rp * kRows, (threadIdx.x - rp * per_row) * kVec);
+}
+
+// K4: grid (tiles, na), TY * TX / (kVec kRows) threads; block (tile, a)
+// rotates view a's tile from quarter kq[a]. starts (na, tiles) holds
+// (xs, ys); kx, ky the plan's shifts.
+template <typename OT>
+__global__ void __launch_bounds__(kRotMaxThreads)
+    rotate_tile_kernel(const float* __restrict__ Q, const int* __restrict__ kx,
+                       const float* __restrict__ fx,
+                       const int* __restrict__ ky,
+                       const float* __restrict__ fy,
+                       const int* __restrict__ kq,
+                       const int2* __restrict__ starts, OT* __restrict__ out,
+                       Dims d, int ntx) {
+  extern __shared__ float smem[];
+  const Tile s = carve(smem, d);
+  const int a = blockIdx.y, C = d.C, tyi = blockIdx.x / ntx;
+  const int i0 = tyi * d.ty, j0 = (blockIdx.x - tyi * ntx) * d.tx;
+  const int2 rj = thread_spot(d.tx);
+  const int2 at = starts[static_cast<size_t>(a) * gridDim.x + blockIdx.x];
+  const size_t off = static_cast<size_t>(a) * C;
+  float v[kRows][kVec];
+  tile_view<false>(Q + static_cast<size_t>(kq[a]) * C * C, kx + off,
+                   fx + off, ky + off, fy + off, at.x, at.y, i0, j0, d, s,
+                   rj.x, rj.y, v);
+  store_tile(out + off * C, i0 + rj.x, j0 + rj.y, v, C);
+}
+
+// K5: grid (tiles, chunks); chunk c = (first, count, slot) takes views
+// order[first .. first + count) (all of one quarter) in that order, sums
+// the tile in registers and writes it to plane `slot` of dst once. starts
+// (na, tiles) holds the transposed chain's (xs, ys); kx, ky the plan's
+// shifts (-k - 1 reduced mod C).
+template <typename IT>
+__global__ void __launch_bounds__(kRotMaxThreads)
+    rotate_adj_tile_kernel(const IT* __restrict__ Gc,
+                           const int* __restrict__ kx,
+                           const float* __restrict__ fx,
+                           const int* __restrict__ ky,
+                           const float* __restrict__ fy,
+                           const int* __restrict__ order,
+                           const int* __restrict__ chunks,
+                           const int2* __restrict__ starts,
+                           float* __restrict__ dst, Dims d, int ntx) {
+  extern __shared__ float smem[];
+  const Tile s = carve(smem, d);
+  const int C = d.C, tyi = blockIdx.x / ntx;
+  const int i0 = tyi * d.ty, j0 = (blockIdx.x - tyi * ntx) * d.tx;
+  const int2 rj = thread_spot(d.tx);
+  const int* ch = chunks + 3 * blockIdx.y;
+  __shared__ int3 views[32];  // (a, xs, ys) of up to 32 views of the chunk
+  float acc[kRows][kVec] = {};
+  for (int n0 = 0; n0 < ch[1]; n0 += 32) {
+    const int nv = min(32, ch[1] - n0);
+    __syncthreads();  // the last group's views are read
+    if (threadIdx.x < nv) {
+      const int a = order[ch[0] + n0 + threadIdx.x];
+      const int2 at =
+          starts[static_cast<size_t>(a) * gridDim.x + blockIdx.x];
+      views[threadIdx.x] = make_int3(a, at.x, at.y);
+    }
+    __syncthreads();
+    for (int n = 0; n < nv; ++n) {
+      const int3 w = views[n];
+      const size_t off = static_cast<size_t>(w.x) * C;
+      float v[kRows][kVec];
+      tile_view<true>(Gc + off * C, kx + off, fx + off, ky + off, fy + off,
+                      w.y, w.z, i0, j0, d, s, rj.x, rj.y, v);
+#pragma unroll
+      for (int m = 0; m < kRows; ++m)
+#pragma unroll
+        for (int q = 0; q < kVec; ++q) acc[m][q] += v[m][q];
+    }
+  }
+  store_tile(dst + static_cast<size_t>(ch[2]) * C * C, i0 + rj.x, j0 + rj.y,
+             acc, C);
+}
+
+// K5's second pass: out[z] = sum of the partial planes
+// qfirst[z] .. qfirst[z + 1] - 1, in that order (zero for none). grid
+// (ceil(C*C / 256), 3).
+__global__ void rotate_adj_reduce(const float* __restrict__ P,
+                                  const int* __restrict__ qfirst,
+                                  float* __restrict__ out, int CC) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x, z = blockIdx.y;
+  if (e >= CC) return;
+  float v = 0.f;
+  for (int c = qfirst[z]; c < qfirst[z + 1]; ++c)
+    v += P[static_cast<size_t>(c) * CC + e];
+  out[static_cast<size_t>(z) * CC + e] = v;
 }
 
 // ---- K6 -------------------------------------------------------------------
@@ -867,8 +1078,59 @@ int launch_ata_f32(const float* R, const float* G, float* P, float* U,
   return 0;
 }
 
-dim3 canvas_grid(int C, int z) {
-  return dim3((C + kTileX - 1) / kTileX, (C + kTileY - 1) / kTileY, z);
+// Checks a rotate plan's sizes (cudaErrorInvalidValue for one the kernels
+// cannot run) and lets `fn` take its shared memory: -> error, threads and
+// bytes per block, tiles per canvas.
+int rotate_setup(const void* fn, const Dims& d, int* threads, int* bytes,
+                 int* tiles) {
+  if (d.C < 1 || d.ty < kRows || d.ty % kRows || d.tx < kVec ||
+      d.tx % kVec || d.w2 < d.tx + 1 || d.r1 < d.ty + 1 ||
+      static_cast<long long>(d.C) * d.C >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long th = static_cast<long long>(d.ty) * d.tx / (kVec * kRows);
+  const long long words = rotate_smem_words(d.ty, d.w2, d.r1);
+  if (th < 32 || th > kRotMaxThreads || 4 * words > kSmemMax)
+    return static_cast<int>(cudaErrorInvalidValue);
+  *threads = static_cast<int>(th);
+  *bytes = static_cast<int>(4 * words);
+  *tiles = ((d.C + d.ty - 1) / d.ty) * ((d.C + d.tx - 1) / d.tx);
+  return *bytes > 48 * 1024 ? set_smem(fn, *bytes) : 0;
+}
+
+template <typename OT>
+int launch_rotate(const float* Q, const int* kx, const float* fx,
+                  const int* ky, const float* fy, const int* kq,
+                  const int2* starts, OT* out, int na, const Dims& d,
+                  cudaStream_t s) {
+  const void* fn = reinterpret_cast<const void*>(rotate_tile_kernel<OT>);
+  int threads, bytes, tiles;
+  if (const int err = rotate_setup(fn, d, &threads, &bytes, &tiles))
+    return err;
+  rotate_tile_kernel<OT><<<dim3(tiles, na), threads, bytes, s>>>(
+      Q, kx, fx, ky, fy, kq, starts, out, d, (d.C + d.tx - 1) / d.tx);
+  return 0;
+}
+
+template <typename IT>
+int launch_rotate_adj(const IT* Gc, const int* kx, const float* fx,
+                      const int* ky, const float* fy, const int* order,
+                      const int* chunks, const int2* starts,
+                      const int* qfirst, float* partials, float* out,
+                      int nchunks, const Dims& d, cudaStream_t s) {
+  const void* fn = reinterpret_cast<const void*>(rotate_adj_tile_kernel<IT>);
+  int threads, bytes, tiles;
+  if (const int err = rotate_setup(fn, d, &threads, &bytes, &tiles))
+    return err;
+  if (nchunks < 0 || partials == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (nchunks)  // none: every quarter has no view, the second pass zeroes
+    rotate_adj_tile_kernel<IT><<<dim3(tiles, nchunks), threads, bytes, s>>>(
+        Gc, kx, fx, ky, fy, order, chunks, starts, partials, d,
+        (d.C + d.tx - 1) / d.tx);
+  const int CC = d.C * d.C;
+  rotate_adj_reduce<<<dim3((CC + 255) / 256, 3), 256, 0, s>>>(
+      partials, qfirst, out, CC);
+  return 0;
 }
 
 }  // namespace
@@ -878,59 +1140,72 @@ dim3 canvas_grid(int C, int z) {
 // kind: 0 float32, 1 bfloat16 (K4: the output; K5: the input; K6: R and G).
 extern "C" {
 
+// K4 with rotate_plan's shifts kx, ky (int32 (na, C), reduced mod C), starts
+// (na, tiles, 2) and sizes.
 int trips_shear_rotate(int kind, const void* Q, const void* kx,
                        const void* fx, const void* ky, const void* fy,
-                       const void* kq, void* out, int na, int C,
-                       void* stream) {
+                       const void* kq, const void* starts, void* out, int na,
+                       int C, int ty, int tx, int w2, int r1, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
-  const dim3 block(kTileX, kTileY);
+  const Dims d{C, ty, tx, w2, r1};
   const auto* q = static_cast<const float*>(Q);
   const auto* ikx = static_cast<const int*>(kx);
   const auto* ffx = static_cast<const float*>(fx);
   const auto* iky = static_cast<const int*>(ky);
   const auto* ffy = static_cast<const float*>(fy);
   const auto* ikq = static_cast<const int*>(kq);
+  const auto* st = static_cast<const int2*>(starts);
+  int err;
   switch (kind) {
     case kF32:
-      rotate_kernel<float><<<canvas_grid(C, na), block, 0, s>>>(
-          q, ikx, ffx, iky, ffy, ikq, static_cast<float*>(out), C);
+      err = launch_rotate(q, ikx, ffx, iky, ffy, ikq, st,
+                          static_cast<float*>(out), na, d, s);
       break;
     case kBF16:
-      rotate_kernel<__nv_bfloat16><<<canvas_grid(C, na), block, 0, s>>>(
-          q, ikx, ffx, iky, ffy, ikq, static_cast<__nv_bfloat16*>(out), C);
+      err = launch_rotate(q, ikx, ffx, iky, ffy, ikq, st,
+                          static_cast<__nv_bfloat16*>(out), na, d, s);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  return err ? err : static_cast<int>(cudaGetLastError());
 }
 
+// K5 with rotate_plan's shifts kx, ky (-k - 1 reduced mod C), view order
+// (na,), chunks (nchunks, 3) of (first, count, slot), starts (na, tiles, 2)
+// and qfirst (4,); partials (nchunks, C, C) float32 scratch.
 int trips_shear_rotate_adj(int kind, const void* Gc, const void* kx,
                            const void* fx, const void* ky, const void* fy,
-                           const void* kq, void* out, int na, int C,
-                           void* stream) {
+                           const void* order, const void* chunks,
+                           const void* starts, const void* qfirst,
+                           void* partials, void* out, int C, int nchunks,
+                           int ty, int tx, int w2, int r1, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
-  const dim3 block(kTileX, kTileY);
+  const Dims d{C, ty, tx, w2, r1};
   const auto* ikx = static_cast<const int*>(kx);
   const auto* ffx = static_cast<const float*>(fx);
   const auto* iky = static_cast<const int*>(ky);
   const auto* ffy = static_cast<const float*>(fy);
-  const auto* ikq = static_cast<const int*>(kq);
+  const auto* ord = static_cast<const int*>(order);
+  const auto* ch = static_cast<const int*>(chunks);
+  const auto* st = static_cast<const int2*>(starts);
+  const auto* qf = static_cast<const int*>(qfirst);
+  auto* P = static_cast<float*>(partials);
   auto* o = static_cast<float*>(out);
+  int err;
   switch (kind) {
     case kF32:
-      rotate_adj_kernel<float><<<canvas_grid(C, 3), block, 0, s>>>(
-          static_cast<const float*>(Gc), ikx, ffx, iky, ffy, ikq, o, na, C);
+      err = launch_rotate_adj(static_cast<const float*>(Gc), ikx, ffx, iky,
+                              ffy, ord, ch, st, qf, P, o, nchunks, d, s);
       break;
     case kBF16:
-      rotate_adj_kernel<__nv_bfloat16><<<canvas_grid(C, 3), block, 0, s>>>(
-          static_cast<const __nv_bfloat16*>(Gc), ikx, ffx, iky, ffy, ikq, o,
-          na, C);
+      err = launch_rotate_adj(static_cast<const __nv_bfloat16*>(Gc), ikx, ffx,
+                              iky, ffy, ord, ch, st, qf, P, o, nchunks, d, s);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  return err ? err : static_cast<int>(cudaGetLastError());
 }
 
 // Rows of G per K6 tile: a chunk of the split is a multiple of this.
