@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's tomography CGLS paths once on one CUDA card.
+"""Drive the PyTorch port's tomography solver paths once on one CUDA card.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one
 card; without one it exits non-zero before printing any result.
@@ -35,12 +35,24 @@ run by raising:
    and synchronized host clocks); K4 and K5 at each tile shape of
    ``shear_kernels.TILES`` (K5 also in chunks of 2, 4 and 8 views), each held
    against its plain version; where ``_local/parent`` holds another
-   checkout of the repository (``git archive``), its K4 and K5 built and
-   timed in turns with these;
+   checkout of the repository (``git archive``), its banded float32
+   ``cgls`` and ``cgls_normal`` loops (a host read of the stopping test
+   every iteration) in turns with these (one read per ``CHUNK``
+   iterations);
 5. loop profiles of the solver paths that run K1-K6: device busy
    time per iteration by kernel (``torch.profiler``) against the wall time
    per iteration of the same solver in 4 (timed before any profiler
-   session, which leaves the host slower), and the device's idle share.
+   session, which leaves the host slower), and the device's idle share;
+   the parent's loops beside the chunked ones;
+6. the tomography demo's regularized solvers (``demos/demo_tomography.py``
+   :50-61, 30 iterations) on the float32 banded operator: GKS with
+   ``FirstDerivative2D``, Hybrid LSQR with reorthogonalization and MMGKS
+   p=2 q=1, each with the discrepancy principle, and Hybrid LSQR with GCV;
+   each final relError held against the JAX package's, K2 and K3 launches
+   against the count each solver's loop implies (no K1), and the wall time
+   per iteration, timed right after 3 (before any profiler session); after
+   5, the device busy time per iteration of the first three and the idle
+   share.
 
 The line before the last holds ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -107,6 +119,24 @@ JAX_SHEAR_CGLS_RELERR = [
     0.11199681617740993, 0.11335843083944963, 0.11414182166237039,
     0.11521927746566787, 0.11560543343990226, 0.11674823909203809,
     0.11816105975455418, 0.11958825269730335, 0.12125040410564515]
+# The relError of the final iterate of the tomography demo's solvers
+# (demos/demo_tomography.py:50-61 with n_iter 30: GKS dp, Hybrid LSQR dp
+# with reorth, MMGKS p2 q1 dp) and of Hybrid LSQR with regparam "gcv" on the
+# same inputs, from trips_tpu on the CPU through the demo's own code
+# (``python3 demo_reference.py jax``: ``demo_tomography.main()`` with
+# ``--large``, its ``relerr`` recording the values), JAX 0.9.0, x64 off, A
+# from the NumPy builder (TRIPS_TPU_NO_NATIVE=1); the JAX operator there is
+# the ELL matrix.
+JAX_DEMO_RELERR = {"GKS dp": 0.09874777382006275,
+                   "Hybrid LSQR dp": 0.10890058901611843,
+                   "MMGKS dp": 0.09466263254699593,
+                   "Hybrid LSQR gcv": 0.10907182294303099}
+DEMO_ITERS, DEMO_DIM = 30, 3
+# Gates on those: 1e-3 absolute. The port's own float32 run on the CPU at
+# full width (``python3 demo_reference.py torch``: plain K2/K3) ends 8.1e-9,
+# 8.6e-9, 3.9e-8 and 2.0e-5 from them, all under 5e-4, so no gate is
+# widened.
+DEMO_GATES = {name: 1e-3 for name in JAX_DEMO_RELERR}
 # Shear gates. bfloat16 outputs (K4's canvases, K6's U before the second
 # product): an entry whose float32 value falls near a bf16 rounding
 # boundary may round the other way, one bf16 step (2^-8 relative), so
@@ -163,7 +193,8 @@ def cuda_ms(fn, reps, flush=None):
 # them (dense).
 HBM_BPS, F32_FLOPS, BF16_FLOPS, TF32_FLOPS = 3.35e12, 67e12, 989e12, 495e12
 LOOP_ITERS = 20  # profiled iterations per solver loop (phase 5)
-# another checkout whose K4 and K5 phase 4 times beside these, if present
+LOOP_PAIRS = 10  # parent/this pairs of the CGLS loop walls (phase 4)
+# another checkout whose CGLS loops phase 4 times beside these, if present
 PARENT = Path(__file__).resolve().parent / "_local" / "parent"
 
 
@@ -192,9 +223,12 @@ def device_ms(fn, reps, parts=None, sessions=3):
     act = [torch.profiler.ProfilerActivity.CUDA]
     runs = []
     for _ in range(sessions):
-        # a session now and then records no kernel at all (seen once on an
-        # H100 among dozens of runs): profile again, at most three times
-        for _ in range(3):
+        # a session now and then records no kernel at all (on an H100, once
+        # among dozens of runs, and once three sessions in a row): profile
+        # again after a pause, at most six times
+        for attempt in range(6):
+            if attempt:
+                time.sleep(0.5)
             with torch.profiler.profile(activities=act) as prof:
                 for _ in range(reps):
                     fn()
@@ -204,6 +238,8 @@ def device_ms(fn, reps, parts=None, sessions=3):
             us = sum(e.self_device_time_total for e in events)
             if us > 0:
                 break
+            print(f"chip_smoke: a profiler session saw no device time "
+                  f"(attempt {attempt + 1})", file=sys.stderr)
         check(us > 0, "the profiler saw no device time")
         runs.append((us, [(e.key, e.self_device_time_total)
                           for e in events]))
@@ -289,41 +325,46 @@ def library_csr(M, dev):
     raise RuntimeError("torch takes no CSR matrix-vector product here")
 
 
-def parent_rotate(calls):
-    """{name: fn} running the K4 and K5 calls of ``shear_calls`` through
-    PARENT's kernel library (built from its sources by its own
-    ``_build.py``, entry points of the signature before plans:
-    kind, in, kx, fx, ky, fy, kq, out, na, C, stream), or None without
-    PARENT."""
-    import torch
-
-    if not (PARENT / "trips_tpu_torch" / "_build.py").exists():
+def parent_loops():
+    """{"cgls": fn, "cgls_normal": fn} of PARENT's ``krylov/cgls.py`` (it
+    imports only torch), or None without PARENT."""
+    path = PARENT / "trips_tpu_torch" / "krylov" / "cgls.py"
+    if not path.exists():
         return None
-    spec = importlib.util.spec_from_file_location(
-        "parent_build", PARENT / "trips_tpu_torch" / "_build.py")
+    spec = importlib.util.spec_from_file_location("parent_cgls", path)
     mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod  # its dataclasses look their module up
     spec.loader.exec_module(mod)
-    lib = mod.load()
-    kinds = {torch.float32: 0, torch.bfloat16: 1}
-    (_, (Q, *sh), kw), (_, (Gc, *_), _) = calls[:2]
-    na, C = Gc.shape[0], Gc.shape[-1]
-    stream = torch.cuda.current_stream().cuda_stream
+    return {"cgls": mod.cgls, "cgls_normal": mod.cgls_normal}
 
-    def k4():
-        out = torch.empty((na, C, C), dtype=kw["out_dtype"], device=Q.device)
-        check(lib.trips_shear_rotate(
-            kinds[out.dtype], *(t.data_ptr() for t in (Q, *sh, out)), na, C,
-            stream) == 0, "parent K4 launch")
-        return out
 
-    def k5():
-        out = torch.empty((3, C, C), dtype=torch.float32, device=Q.device)
-        check(lib.trips_shear_rotate_adj(
-            kinds[Gc.dtype], *(t.data_ptr() for t in (Gc, *sh, out)), na, C,
-            stream) == 0, "parent K5 launch")
-        return out
+def demo_solves(OP, bv, L, delta):
+    """{name: (solve(x_true=None) -> (x, info), info -> the K2 and K3
+    launches its loop implies)} for the tomography demo's solvers on
+    ``OP``. GKS: golub_kahan over DEMO_DIM steps (one K3 and one K2 each),
+    ``A.matmat(V)`` (a K2 per column), then per iteration one K3 (the
+    residual) and one K2 (the new column). MMGKS: the same set-up and one
+    K3 for ``A.rmatvec(b)``, then per iteration two K2 (``A x - b`` and the
+    new column) and one K3. The hybrids count their own applies
+    (``matvec_count``, half each way)."""
+    from trips_tpu_torch.solvers import GKS, MMGKS, Hybrid_LSQR
 
-    return {"shear_rotate": k4, "shear_rotate_adjoint": k5}
+    n, d = DEMO_ITERS, DEMO_DIM
+    both = lambda info: (info["matvec_count"] // 2,) * 2  # noqa: E731
+    return {
+        "GKS dp": (lambda x_true=None: GKS(
+            OP, bv, L, projection_dim=d, n_iter=n, regparam="dp",
+            delta=delta, x_true=x_true), lambda info: (2 * d + n, d + n)),
+        "Hybrid LSQR dp": (lambda x_true=None: Hybrid_LSQR(
+            OP, bv, n_iter=n, regparam="dp", delta=delta, reorth=True,
+            x_true=x_true), both),
+        "MMGKS dp": (lambda x_true=None: MMGKS(
+            OP, bv, L, pnorm=2, qnorm=1, projection_dim=d, n_iter=n,
+            regparam="dp", delta=delta, x_true=x_true),
+            lambda info: (2 * d + 2 * n, d + 1 + n)),
+        "Hybrid LSQR gcv": (lambda x_true=None: Hybrid_LSQR(
+            OP, bv, n_iter=n, x_true=x_true), both),
+    }
 
 
 @contextlib.contextmanager
@@ -348,8 +389,8 @@ def main():
         return 1
     from trips_tpu_torch import _build
     from trips_tpu_torch.krylov import cgls, cgls_normal
-    from trips_tpu_torch.krylov.cgls import _cgn_chunk, _cgn_init
-    from trips_tpu_torch.operators import ShearFanProjector
+    from trips_tpu_torch.krylov.cgls import CHUNK, _cgn_chunk, _cgn_init
+    from trips_tpu_torch.operators import FirstDerivative2D, ShearFanProjector
     from trips_tpu_torch.operators import shear_kernels as sk
     from trips_tpu_torch.problems import Tomography, device_sparse_operator
     from trips_tpu_torch.solvers import CGLS
@@ -376,7 +417,8 @@ def main():
     x_true, nx, ny = tomo.gen_true("grains", nx=NX, ny=NX, phantom_seed=0)
     OP, b, _, _, A = tomo.gen_data(x_true, nx, ny, VIEWS)
     np.random.seed(0)
-    b_noisy, _ = tomo.add_noise(b, "Gaussian", NOISE)
+    b_noisy, delta = tomo.add_noise(b, "Gaussian", NOISE)
+    delta = float(delta)
     check(abs(np.linalg.norm(b_noisy) - B_NOISY_NORM) <= 1e-9 * B_NOISY_NORM,
           f"inputs differ from the reference's: ||b|| "
           f"{np.linalg.norm(b_noisy)!r}")
@@ -645,6 +687,42 @@ def main():
     check(all(v > 0 for c in shear_launches.values() for v in c.values()),
           "a shear kernel never launched")
 
+    # ---- 6. the demo's regularized solvers: gates, launches, walls -----
+    # (walls here, before any profiler session; device profiles after 5)
+    demo = demo_solves(OP, bv, FirstDerivative2D(nx, ny, device=dev), delta)
+    demo_wall, demo_launches = {}, {}
+    for name, (solve, expect) in demo.items():
+        bk.reset_launch_counts()
+        xs, info = solve(x_true)
+        got = dict(bk.launch_counts)
+        want = expect(info)
+        hist = np.array(info["relError"])
+        final, lam = float(hist[-1]), info["regParam"]
+        check(tuple(xs.shape) == (nx * ny, 1)
+              and bool(torch.isfinite(xs).all()), f"{name} solution")
+        check(len(hist) == len(info["xHistory"]) == len(
+            info["regParam_history"]) and np.isfinite(hist).all(),
+              f"{name} history")
+        demo_launches[name] = got
+        runs = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            solve()
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t) / DEMO_ITERS * 1e3)
+        demo_wall[name] = float(np.mean(runs))  # ms per iteration
+        ref, gate = JAX_DEMO_RELERR[name], DEMO_GATES[name]
+        print(f"[6] {name}: its {info['its']}, relError final {final!r} "
+              f"(JAX CPU {ref!r}, gate {gate}), min {float(hist.min())!r} "
+              f"at iteration {int(hist.argmin()) + 1}, last lambda {lam!r}; "
+              f"launches {got} (expected K2 {want[0]}, K3 {want[1]}); wall "
+              f"{demo_wall[name]!r} ms/iter (two solves: {runs!r}, set-up "
+              f"included)")
+        check((got["banded_fwd"], got["banded_adj"]) == want
+              and got["banded_ata"] == 0, f"{name} launches {got} vs {want}")
+        check(abs(final - ref) <= gate, f"{name} final relError {final!r}")
+
     # ---- 4. times ------------------------------------------------------
     def plain(op):
         p = copy.copy(op)
@@ -675,6 +753,36 @@ def main():
                     kernel_wall["banded", kind, solver] = ms
             print(f"[4] {solver} {kind}, {TIMED_ITERS} iterations: "
                   + "; ".join(line))
+    # the chunked loops against the parent's (a host read of the stopping
+    # test every iteration): LOOP_PAIRS pairs on the float32 pack, the
+    # order alternating (parent first in even pairs)
+    parent_cg = parent_loops()
+    mine_cg = {"cgls": cgls, "cgls_normal": cgls_normal}
+    loop_turns = {}
+    if parent_cg is None:
+        print(f"[4] parent: no checkout under {PARENT}")
+    for solver in ("cgls_normal", "cgls") if parent_cg else ():
+        runs = {"parent": [], "this": []}
+        for pair in range(LOOP_PAIRS):
+            order = ("parent", "this") if pair % 2 == 0 else ("this", "parent")
+            for label in order:
+                fn = (parent_cg if label == "parent" else mine_cg)[solver]
+                fn(f32, bv, x0, 2, 0.0)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                _, k = fn(f32, bv, x0, TIMED_ITERS, 0.0)
+                torch.cuda.synchronize()
+                check(k == TIMED_ITERS, f"{label} {solver} k {k}")
+                runs[label].append((time.perf_counter() - t) / k * 1e3)
+        loop_turns[solver] = runs
+        q = {lb: np.percentile(v, [25, 50, 75]) for lb, v in runs.items()}
+        wins = sum(a < b for a, b in zip(runs["this"], runs["parent"]))
+        print(f"[4] banded float32 {solver}, {TIMED_ITERS} iterations, "
+              f"parent (a host read every iteration) vs this (one per "
+              f"{CHUNK}), {LOOP_PAIRS} pairs in alternating order: ms/iter "
+              f"quartiles parent {q['parent'].tolist()!r}, this "
+              f"{q['this'].tolist()!r}; this faster in {wins} of "
+              f"{LOOP_PAIRS} pairs; runs {runs!r}")
     def shear_plain(op):
         p = copy.copy(op)
         p._rot, p._rot_t = sk.shear_rotate_ref, sk.shear_rotate_adjoint_ref
@@ -892,25 +1000,6 @@ def main():
     sk.PLANS.update(taken)
     sk.clear_plans()
 
-    # the parent's K4 and K5 on the same inputs, in turns with these
-    parent_ms = {}
-    for kind, op in shear_ops.items():
-        calls = shear_calls(op, gen, sk)[:2]
-        fns = parent_rotate(calls)
-        if fns is None:
-            print(f"[4] parent: no checkout under {PARENT}")
-            break
-        for name, args, kw in calls:
-            ref = getattr(sk, name + "_ref")(*args, **kw)
-            e = rel(fns[name]().float(), ref.float())
-            mine = (lambda f, a, k: lambda: f(*a, **k))(getattr(sk, name),
-                                                        args, kw)
-            t = [device_ms(f, 10) for f in (fns[name], mine, mine, fns[name])]
-            parent_ms[kind, name] = (t[0], t[3])
-            print(f"[4] parent vs this {name} {kind} (device ms, in turns "
-                  f"parent, this, this, parent): {t!r}; parent rel err vs "
-                  f"plain {e!r}")
-
     print(f"[4] clocks.sm,power.draw,temperature.gpu after: "
           f"{smi('clocks.sm,power.draw,temperature.gpu')}")
 
@@ -935,6 +1024,32 @@ def main():
               f"busy by kernel (us/iter): "
               + ", ".join(f"{k} {v * 1e3!r}" for k, v in top))
 
+    for solver, runs in loop_turns.items():
+        for label in ("parent", "this"):
+            fn = parent_cg[solver] if label == "parent" else mine_cg[solver]
+            busy, by_kernel = loop_profile(fn, f32, bv, x0)
+            wall = float(np.median(runs[label]))
+            top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:4]
+            print(f"[5] banded float32 {solver} {label} loop: device busy "
+                  f"{busy * 1e3!r} us/iter, wall {wall * 1e3!r} us/iter "
+                  f"(median of the pairs in [4]), idle share "
+                  f"{1 - busy / wall!r}; busy by kernel (us/iter): "
+                  + ", ".join(f"{k} {v * 1e3!r}" for k, v in top))
+
+    # ---- 6. device profiles of the demo's solvers ----------------------
+    for name in ("GKS dp", "Hybrid LSQR dp", "MMGKS dp"):
+        parts = {}
+        busy = device_ms(demo[name][0], 1, parts) / DEMO_ITERS
+        wall = demo_wall[name]
+        top = sorted(parts.items(), key=lambda kv: -kv[1])[:6]
+        got = demo_launches[name]
+        print(f"[6] {name}: device busy {busy * 1e3!r} us/iter, wall "
+              f"{wall * 1e3!r} us/iter, idle share {1 - busy / wall!r}; K2 "
+              f"{got['banded_fwd'] / DEMO_ITERS!r} and K3 "
+              f"{got['banded_adj'] / DEMO_ITERS!r} launches per iteration "
+              f"(set-up included); busy by kernel (us/iter): "
+              + ", ".join(f"{k} {v / DEMO_ITERS * 1e3!r}" for k, v in top))
+
     def entry(name, source, replaces, launches, err, ms, plain_ms, bnd,
               library_ms, **extra):
         return {"name": name, "route": "cuda", "source": source,
@@ -957,15 +1072,13 @@ def main():
                      library_bound_ms=library_bound[name][0])
                for name in ("banded_ata", "banded_fwd", "banded_adj")]
     def rotate_extra(name):
-        """K4/K5: the float32 canvas numbers, the plan and the parent's."""
+        """K4/K5: the float32 canvas numbers and the plan."""
         if name == "gcontract_ata":
             return {}
         f = shear_ms["float32"]
         return {"ms_f32": f[name], "plain_ms_f32": f[name + "_ref"],
                 "bound_ms_f32": f["bounds"][name][0],
-                "plans": {str(b): v for b, v in sk.PLANS[name].items()},
-                "parent_ms": {k: v for (k, n), v in parent_ms.items()
-                              if n == name} or None}
+                "plans": {str(b): v for b, v in sk.PLANS[name].items()}}
 
     for kind in ("bfloat16", "float32"):  # the bench's G type first
         t = shear_ms[kind]

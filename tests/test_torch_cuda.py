@@ -435,3 +435,92 @@ def test_checked_buckets_are_kept_weakly(cuda):
     del W, S, P, sc, bad, args, op
     gc.collect()
     assert gone() is None
+
+
+# ---- the tomography demo's regularized solvers ------------------------------
+@pytest.mark.parametrize("name,args", [
+    ("FirstDerivative1D", (50,)), ("FirstDerivative2D", (64, 48)),
+    ("SpaceTimeDerivative", (12, 10, 3)),
+    ("CenteredSpaceTimeDerivative", (12, 10, 3)),
+    ("CenteredDerivative2D", (64, 48))])
+def test_derivatives_match_cpu(cuda, name, args):
+    """Shifts, differences and ordered slice adds: the card's applies equal
+    the CPU's (held to 1e-6 of the norm)."""
+    from trips_tpu_torch import operators as to
+
+    gpu, cpu = (getattr(to, name)(*args, device=d) for d in (cuda, "cpu"))
+    assert gpu.device.type == "cuda"
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(cpu.shape[1], 3, generator=g)
+    y = torch.randn(cpu.shape[0], 3, generator=g)
+    for fn, v in (("matvec", x[:, 0]), ("rmatvec", y[:, 0]), ("matmat", x),
+                  ("rmatmat", y)):
+        got = getattr(gpu, fn)(v.to(cuda))
+        assert got.device.type == "cuda"
+        assert _rel(got.cpu(), getattr(cpu, fn)(v)) <= 1e-6, fn
+
+
+@pytest.fixture(scope="module")
+def demo64():
+    """The tomography demo's problem at nx = 64, 20 views (grains, 0.1%
+    noise after np.random.seed(0)) with the float32 banded operator on the
+    card and on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from trips_tpu_torch.problems import Tomography, device_sparse_operator
+
+    np.random.seed(0)
+    tomo = Tomography(CommitCrime=False, device="cpu")
+    x_true, nx, ny = tomo.gen_true("grains", nx=64, ny=64, phantom_seed=0)
+    OP, b, _, _, A = tomo.gen_data(x_true, nx, ny, 20)
+    bn, delta = tomo.add_noise(b, "Gaussian", 0.001)
+    gpu = device_sparse_operator(A, nx=nx, angles=tomo.theta, device="cuda")
+    return dict(ops={"cuda": gpu, "cpu": OP}, x_true=x_true, nx=nx,
+                b=torch.tensor(bn.reshape(-1), dtype=torch.float32),
+                delta=float(delta))
+
+
+# name: (solve(op, b, L, delta), (K2, K3) launches from info, 10 iterations,
+# projection_dim 3: see chip_smoke.demo_solves)
+DEMO = {
+    "GKS": (lambda op, b, L, delta: _solvers().GKS(
+        op, b, L, projection_dim=3, n_iter=10, regparam="dp", delta=delta),
+        lambda info: (16, 13)),
+    "Hybrid_LSQR": (lambda op, b, L, delta: _solvers().Hybrid_LSQR(
+        op, b, n_iter=10, regparam="dp", delta=delta, reorth=True),
+        lambda info: (info["matvec_count"] // 2,) * 2),
+    "MMGKS": (lambda op, b, L, delta: _solvers().MMGKS(
+        op, b, L, pnorm=2, qnorm=1, projection_dim=3, n_iter=10,
+        regparam="dp", delta=delta), lambda info: (26, 14)),
+}
+
+
+def _solvers():
+    from trips_tpu_torch import solvers
+
+    return solvers
+
+
+@pytest.mark.parametrize("name", list(DEMO))
+def test_demo_solvers_match_cpu(cuda, demo64, name):
+    """demos/demo_tomography.py:50-61 at nx = 64 on the card (K2 and K3
+    behind every apply, launched as often as the loop implies, no K1)
+    against the same solve on the CPU (their plain versions): float32 sums
+    in another order, so the final relError within 1e-3."""
+    from trips_tpu_torch.operators import FirstDerivative2D
+
+    d = demo64
+    solve, expect = DEMO[name]
+    err = {}
+    for dev in ("cuda", "cpu"):
+        L = FirstDerivative2D(d["nx"], d["nx"], device=dev)
+        bk.reset_launch_counts()
+        x, info = solve(d["ops"][dev], d["b"].to(dev), L, d["delta"])
+        assert x.device.type == dev and x.dtype == torch.float32
+        if dev == "cuda":
+            launches = dict(bk.launch_counts)
+            assert (launches["banded_fwd"], launches["banded_adj"]) == \
+                expect(info) and launches["banded_ata"] == 0, launches
+        err[dev] = _rel(x.cpu().reshape(-1),
+                        torch.from_numpy(d["x_true"].reshape(-1)))
+    assert abs(err["cuda"] - err["cpu"]) <= 1e-3, err

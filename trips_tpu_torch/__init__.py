@@ -1,15 +1,18 @@
 """trips-tpu-torch: the trips_tpu package on PyTorch and CUDA (NVIDIA H100).
 
 Ported so far: the tomography CGLS path (phantoms, fan- and parallel-beam
-matrices, bucketed banded operator with hand-written CUDA kernels, CGLS)
-and the matrix-free projectors (the shear-rotate fan projector with
-hand-written CUDA kernels, the on-the-fly and shear-stack projectors). The
-JAX package ``trips_tpu`` is the reference each part is tested against.
+matrices, bucketed banded operator with hand-written CUDA kernels, CGLS),
+the matrix-free projectors (the shear-rotate fan projector with
+hand-written CUDA kernels, the on-the-fly and shear-stack projectors), and
+the regularized solvers of the tomography demo (Golub-Kahan and Arnoldi,
+the derivative and weight operators, GCV/DP/L-curve, GKS, MMGKS, the hybrid
+and projection solvers). The JAX package ``trips_tpu`` is the reference
+each part is tested against.
 """
 import torch
 
-from . import (core, krylov, operators, problems, solvers,  # noqa: F401
-               sparse)
+from . import (core, krylov, operators, problems, regparam,  # noqa: F401
+               solvers, sparse)
 from .core import LinearOperator, aslinearoperator  # noqa: F401
 
 __version__ = "0.1.0"

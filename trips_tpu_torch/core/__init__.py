@@ -1,6 +1,8 @@
 from . import device  # noqa: F401
-from .linop import (AdjointOperator, DenseOperator, LinearOperator,
+from .linop import (AdjointOperator, BatchedBlockDiagOperator, DenseOperator,
+                    IdentityOperator, LinearOperator, ScaledOperator,
                     aslinearoperator)
 
-__all__ = ["AdjointOperator", "DenseOperator", "LinearOperator",
+__all__ = ["AdjointOperator", "BatchedBlockDiagOperator", "DenseOperator",
+           "IdentityOperator", "LinearOperator", "ScaledOperator",
            "aslinearoperator"]

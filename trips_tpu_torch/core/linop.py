@@ -1,14 +1,19 @@
 """Linear-operator protocol on torch tensors.
 
 Counterpart of ``trips_tpu/core/linop.py``: ``matvec`` maps ``(n,) ->
-(m,)``, ``rmatvec`` ``(m,) -> (n,)``; ``op @ x`` dispatches on ``x.dim()``
-and ``op.T`` is the adjoint (real operators). An operator may add
-``normal_matvec`` (``x -> A^T A x``) when it has a fused normal apply.
-Operators hold their tensors on one ``device``.
+(m,)``, ``rmatvec`` ``(m,) -> (n,)``, ``matmat``/``rmatmat`` the same on
+``(n, k)``/``(m, k)`` columns; ``op @ x`` dispatches on ``x.dim()`` and
+``op.T`` is the adjoint (real operators). The base ``matmat`` and
+``rmatmat`` loop over columns; an operator that can apply ``(n, k)`` at once
+overrides them. An operator may add ``normal_matvec`` (``x -> A^T A x``)
+when it has a fused normal apply. Operators hold their tensors on one
+``device``.
 """
 from __future__ import annotations
 
 import torch
+
+from .device import DEFAULT, resolve
 
 
 class LinearOperator:
@@ -28,6 +33,9 @@ class LinearOperator:
     def matmat(self, X):
         return torch.stack([self.matvec(c) for c in X.T], dim=1)
 
+    def rmatmat(self, Y):
+        return torch.stack([self.rmatvec(c) for c in Y.T], dim=1)
+
     def __matmul__(self, x):
         if isinstance(x, LinearOperator):
             return NotImplemented
@@ -38,9 +46,25 @@ class LinearOperator:
             return self.matvec(x[:, 0])[:, None]
         return self.matmat(x)
 
+    def __mul__(self, x):
+        if isinstance(x, (int, float)):
+            return ScaledOperator(float(x), self)
+        return self.__matmul__(x)
+
+    def __rmul__(self, alpha):
+        if isinstance(alpha, (int, float)):
+            return ScaledOperator(float(alpha), self)
+        return NotImplemented
+
     @property
     def T(self):
         return AdjointOperator(self)
+
+    def todense(self):
+        """The operator as a dense ``(m, n)`` tensor (small operators
+        only)."""
+        n = self.shape[1]
+        return self.matmat(torch.eye(n, dtype=self.dtype, device=self.device))
 
 
 class AdjointOperator(LinearOperator):
@@ -55,6 +79,12 @@ class AdjointOperator(LinearOperator):
 
     def rmatvec(self, y):
         return self.op.matvec(y)
+
+    def matmat(self, X):
+        return self.op.rmatmat(X)
+
+    def rmatmat(self, Y):
+        return self.op.matmat(Y)
 
     @property
     def T(self):
@@ -78,6 +108,101 @@ class DenseOperator(LinearOperator):
 
     def matmat(self, X):
         return self.mat @ X
+
+    def rmatmat(self, Y):
+        return self.mat.T @ Y
+
+    def todense(self):
+        return self.mat
+
+
+class IdentityOperator(LinearOperator):
+    """``I_n``; ``todense`` in ``dtype`` (float32 unless given) on
+    ``device`` (the card unless "cpu" is asked for)."""
+
+    def __init__(self, n, dtype=None, device=DEFAULT):
+        self.shape = (n, n)
+        self.dtype = dtype or torch.float32
+        self.device = resolve(device)
+
+    def matvec(self, x):
+        return x
+
+    rmatvec = matvec
+
+    def matmat(self, X):
+        return X
+
+    rmatmat = matmat
+
+    def todense(self):
+        return torch.eye(self.shape[0], dtype=self.dtype, device=self.device)
+
+
+class ScaledOperator(LinearOperator):
+    """``alpha * op``."""
+
+    def __init__(self, alpha, op):
+        self.alpha = alpha
+        self.op = op
+        self.shape = op.shape
+        self.dtype = op.dtype
+        self.device = op.device
+
+    def matvec(self, x):
+        return self.alpha * self.op.matvec(x)
+
+    def rmatvec(self, y):
+        return self.alpha * self.op.rmatvec(y)
+
+    def matmat(self, X):
+        return self.alpha * self.op.matmat(X)
+
+    def rmatmat(self, Y):
+        return self.alpha * self.op.rmatmat(Y)
+
+
+class BatchedBlockDiagOperator(LinearOperator):
+    """``diag(B, B, ..., B)`` with ``nt`` repeats of one shared operator
+    ``B``: the frames of a dynamic problem, applied as the columns of one
+    ``B.matmat`` (the JAX package vmaps ``B`` over them)."""
+
+    def __init__(self, op, nt):
+        self.op = op
+        self.nt = nt
+        self.shape = (op.shape[0] * nt, op.shape[1] * nt)
+        self.dtype = op.dtype
+        self.device = op.device
+
+    def matvec(self, x):
+        X = x.reshape(self.nt, self.op.shape[1])
+        return self.op.matmat(X.T).T.reshape(-1)
+
+    def rmatvec(self, y):
+        Y = y.reshape(self.nt, self.op.shape[0])
+        return self.op.rmatmat(Y.T).T.reshape(-1)
+
+    def normal_matvec(self, x):
+        """Per-frame ``B^T B``, through ``B``'s fused normal apply where it
+        has one."""
+        X = x.reshape(self.nt, self.op.shape[1])
+        fn = getattr(self.op, "normal_matvec",
+                     lambda v: self.op.rmatvec(self.op.matvec(v)))
+        return torch.stack([fn(f) for f in X]).reshape(-1)
+
+    def _frames(self, M, rows, fn):
+        """``fn`` on the frames of ``M (nt * rows, k)`` as the columns of
+        one ``(rows, nt * k)`` block -> ``(nt * out_rows, k)``."""
+        k = M.shape[1]
+        cols = M.reshape(self.nt, rows, k).permute(1, 0, 2).reshape(rows, -1)
+        out = fn(cols)
+        return out.reshape(-1, self.nt, k).permute(1, 0, 2).reshape(-1, k)
+
+    def matmat(self, M):
+        return self._frames(M, self.op.shape[1], self.op.matmat)
+
+    def rmatmat(self, M):
+        return self._frames(M, self.op.shape[0], self.op.rmatmat)
 
 
 def aslinearoperator(A) -> LinearOperator:

@@ -3,17 +3,24 @@
 Counterpart of ``trips_tpu/krylov/cgls.py`` with the same recurrences,
 stopping rules and ``(x, k)`` returns. The JAX loops run on the device in
 one ``lax.while_loop``; here each iteration is enqueued from Python.
-``cgls`` and ``cgls_normal`` read the stopping test back once per iteration
-(one host sync) so that ``k`` is the exact iteration at which the rule
-fired; the fixed-length variants and ``cgls_history`` never sync inside the
-loop (``cgls_history`` freezes the state once the rule fires, as the JAX
-scan does).
+``cgls`` and ``cgls_normal`` run in chunks of ``CHUNK`` steps and read the
+stopping test back once per chunk (one host sync): the steps of a chunk
+are enqueued without a test, each step's state is kept, and one read
+gives the first step at which the rule fired; the loop returns that
+step's state. So the iterates and ``k`` are those of a loop that tests the
+rule every step (the same tensors, no rounding changed); the price is at
+most ``CHUNK - 1`` wasted steps (their applies) after the rule fires. The
+fixed-length variants never sync inside the loop, and ``cgls_history``
+freezes the state with ``torch.where`` once the rule fires, as the JAX
+scan does.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
 
 import torch
+
+CHUNK = 8  # steps between two host reads of the stopping test
 
 
 def _eps(x):
@@ -59,11 +66,29 @@ def _step(A, tol, s: CGLSState) -> CGLSState:
                      k=s.k + 1, done=done)
 
 
+def _run(step, s, n_steps):
+    """At most ``n_steps`` of ``step`` from ``s``, stopping at the first
+    state whose ``done`` is set (``s`` itself if it is): chunks of
+    ``CHUNK`` steps, every state of a chunk kept, and one host read per
+    chunk of the first one done."""
+    while n_steps > 0:
+        states = [s]
+        for _ in range(min(CHUNK, n_steps)):
+            states.append(step(states[-1]))
+        n_steps -= len(states) - 1
+        done = torch.stack([t.done for t in states])
+        # the first done state's index, or len(states) if none is
+        first = int(torch.where(done.any(), done.byte().argmax(),
+                                len(states)))
+        if first < len(states):
+            return states[first]
+        s = states[-1]
+    return s
+
+
 def cgls(A, b, x0, max_iter: int, tol):
     """CGLS; returns (x, k_iterations)."""
-    s = _init(A, b, x0)
-    while s.k < max_iter and not bool(s.done):
-        s = _step(A, tol, s)
+    s = _run(lambda s: _step(A, tol, s), _init(A, b, x0), max_iter)
     return s.x, s.k
 
 
@@ -123,10 +148,9 @@ def _cgn_step(A, tol, s: CGNState) -> CGNState:
 
 def _cgn_chunk(A, tol, s: CGNState, k_end: int) -> CGNState:
     """Run the ``cgls_normal`` recurrence up to iteration ``k_end``: the same
-    body as ``cgls_normal``, so chunking does not change any rounding."""
-    while s.k < k_end and not bool(s.done):
-        s = _cgn_step(A, tol, s)
-    return s
+    loop as ``cgls_normal``, so stopping at ``k_end`` and resuming does not
+    change any rounding."""
+    return _run(lambda s: _cgn_step(A, tol, s), s, k_end - s.k)
 
 
 def cgls_normal(A, b, x0, max_iter: int, tol=0.0):
