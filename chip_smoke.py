@@ -52,7 +52,24 @@ run by raising:
    against the count each solver's loop implies (no K1), and the wall time
    per iteration, timed right after 3 (before any profiler session); after
    5, the device busy time per iteration of the first three and the idle
-   share.
+   share;
+7. dynamic CT at Emoji's block structure (``generate_synthetic_dynamic``,
+   33 frames of 128x128, 10 angles per frame, 1% noise): the frame-varying
+   ``DynamicBandedOperator`` (float32, 8 line groups) and
+   ``BucketedDynamicBandedOperator`` (3 buckets; float32, bfloat16, int8),
+   K1-K3 each over all frames and stacks in one launch against their plain
+   versions, the float32 applies against the host block-diagonal CSR matrix,
+   adjointness, one launch per apply; ``BatchedBlockDiagOperator`` over
+   frame 0's ``BucketedBandedProjector`` for the 33 frames (one launch per
+   apply, weight frame stride 0) against its plain version; then the
+   dynamic demo's sequence (``demos/demo_dynamic_ct.py``:75-116): static
+   per-frame MMGKS over ``CsrOperator``, dynamic MMGKS with anisotropic TV,
+   isotropic TV and group sparsity, Hybrid LSQR (GCV), each final relError
+   held to 1e-3 of the JAX package's, and ``cgls_normal`` on the bucketed
+   float32 and int8 packs (minima within 0.01); launches against the counts
+   the loops imply; K1-K3's device ms per apply against their bound, plain
+   version and the block-diagonal CSR product; each solver's wall and
+   device busy time per iteration and idle share.
 
 The line before the last holds ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -146,6 +163,23 @@ DEMO_GATES = {name: 1e-3 for name in JAX_DEMO_RELERR}
 # the CPU): past the minimum at iteration 15 float32 rounding moves the
 # semiconvergence tail more than on the banded path.
 BF16_RTOL, SHEAR_HISTORY_ATOL, SOLVE_GAP = 1e-3, 1.1e-2, 1e-2
+# Phase 7: generate_synthetic_dynamic(**DYN, return_angles=True) and the
+# dynamic demo's sequence on it, iterations as demos/demo_dynamic_ct.py
+# (--iters 20: static per-frame MMGKS max(4, 20 // 4) = 5).
+DYN = dict(nx=128, nt=33, views=10, noise_level=0.01)
+DYN_ITERS, DYN_STATIC_ITERS, DYN_CGN_ITERS = 20, 5, 30
+# The final relErrors of that sequence from trips_tpu on the CPU
+# (``python3 demo_reference.py dynamic``: JAX 0.9.0, x64 off, A from the
+# NumPy builder; static per-frame MMGKS over each frame's EllOperator, the
+# dynamic solvers over DynamicBandedOperator.from_frames(AA, 128, angles,
+# n_groups=8)), and ||b|| of its inputs.
+JAX_DYN_RELERR = {"static per-frame MMGKS": 0.2276759306331221,
+                  "dynamic MMGKS anisoTV": 0.23093699008263138,
+                  "dynamic MMGKS isoTV": 0.21285289411831482,
+                  "dynamic MMGKS GS": 0.21396484676883595,
+                  "Hybrid LSQR": 0.23306440329101508}
+B_DYN_NORM = 9160.875899366103
+DYN_GATE = 1e-3
 SHEAR_REPLACES = {
     "shear_rotate": "trips_tpu/operators/pallas_shear.py:99",
     "shear_rotate_adjoint": "trips_tpu/operators/pallas_shear.py:122",
@@ -342,11 +376,11 @@ def demo_solves(OP, bv, L, delta):
     """{name: (solve(x_true=None) -> (x, info), info -> the K2 and K3
     launches its loop implies)} for the tomography demo's solvers on
     ``OP``. GKS: golub_kahan over DEMO_DIM steps (one K3 and one K2 each),
-    ``A.matmat(V)`` (a K2 per column), then per iteration one K3 (the
-    residual) and one K2 (the new column). MMGKS: the same set-up and one
-    K3 for ``A.rmatvec(b)``, then per iteration two K2 (``A x - b`` and the
-    new column) and one K3. The hybrids count their own applies
-    (``matvec_count``, half each way)."""
+    ``A.matmat(V)`` (one K2, the columns as its frames), then per iteration
+    one K3 (the residual) and one K2 (the new column). MMGKS: the same
+    set-up and one K3 for ``A.rmatvec(b)``, then per iteration two K2
+    (``A x - b`` and the new column) and one K3. The hybrids count their
+    own applies (``matvec_count``, half each way)."""
     from trips_tpu_torch.solvers import GKS, MMGKS, Hybrid_LSQR
 
     n, d = DEMO_ITERS, DEMO_DIM
@@ -354,14 +388,14 @@ def demo_solves(OP, bv, L, delta):
     return {
         "GKS dp": (lambda x_true=None: GKS(
             OP, bv, L, projection_dim=d, n_iter=n, regparam="dp",
-            delta=delta, x_true=x_true), lambda info: (2 * d + n, d + n)),
+            delta=delta, x_true=x_true), lambda info: (d + 1 + n, d + n)),
         "Hybrid LSQR dp": (lambda x_true=None: Hybrid_LSQR(
             OP, bv, n_iter=n, regparam="dp", delta=delta, reorth=True,
             x_true=x_true), both),
         "MMGKS dp": (lambda x_true=None: MMGKS(
             OP, bv, L, pnorm=2, qnorm=1, projection_dim=d, n_iter=n,
             regparam="dp", delta=delta, x_true=x_true),
-            lambda info: (2 * d + 2 * n, d + 1 + n)),
+            lambda info: (d + 1 + 2 * n, d + 1 + n)),
         "Hybrid LSQR gcv": (lambda x_true=None: Hybrid_LSQR(
             OP, bv, n_iter=n, x_true=x_true), both),
     }
@@ -379,6 +413,328 @@ def shear_ata(on):
             os.environ.pop("TRIPS_TPU_SHEAR_ATA")
         else:
             os.environ["TRIPS_TPU_SHEAR_ATA"] = old
+
+
+def frame_args(op, X, Y):
+    """K1-K3 wrapper arguments over all frames and stacks of a dynamic
+    operator, as its applies call them: images ``X (nt, n, n)``, sinograms
+    ``Y (nt, views, p)``."""
+    XT = X.transpose(1, 2).contiguous()
+    return {"banded_ata": (X, XT, op._bks, op.n_groups),
+            "banded_fwd": (X, XT, op._bks, op._aidx, op.det_count,
+                           op.n_groups, op.views),
+            "banded_adj": (Y, op._bks, op._aidx, op.n_groups)}
+
+
+def plain_copy(op):
+    """``op`` with K1-K3 replaced by their plain versions."""
+    from trips_tpu_torch.sparse import banded_kernels as bk
+
+    p = copy.copy(op)
+    p._fwd, p._adj = bk.banded_fwd_buckets_ref, bk.banded_adj_buckets_ref
+    p._ata = bk.banded_ata_buckets_ref
+    return p
+
+
+def dynamic_path(dev, card, gen):
+    """Phase 7 up to the gates: the problem, the packs, K1-K3 over frames
+    against their plain versions, the operators against the host matrix,
+    and the dynamic demo's solvers with their launches, relErrors and
+    walls (before any profiler session). -> the state ``dynamic_times``
+    measures."""
+    import torch
+
+    from trips_tpu_torch.core import BatchedBlockDiagOperator
+    from trips_tpu_torch.krylov import cgls_normal
+    from trips_tpu_torch.krylov.cgls import _cgn_chunk, _cgn_init
+    from trips_tpu_torch.operators import (CenteredSpaceTimeDerivative,
+                                           FirstDerivative2D,
+                                           SpaceTimeDerivative)
+    from trips_tpu_torch.problems import generate_synthetic_dynamic
+    from trips_tpu_torch.solvers import MMGKS, Hybrid_LSQR
+    from trips_tpu_torch.sparse import (BucketedBandedProjector,
+                                        BucketedDynamicBandedOperator,
+                                        CsrOperator, DynamicBandedOperator)
+    from trips_tpu_torch.sparse import banded_kernels as bk
+
+    t0 = time.perf_counter()
+    (A, b, AA, B, nx, ny, nt, delta, x_true,
+     angles) = generate_synthetic_dynamic(**DYN, return_angles=True)
+    check(abs(np.linalg.norm(b) - B_DYN_NORM) <= 1e-9 * B_DYN_NORM,
+          f"dynamic inputs differ from the reference's: ||b|| "
+          f"{np.linalg.norm(b)!r}")
+    t1 = time.perf_counter()
+    ops = {"flat float32": DynamicBandedOperator.from_frames(
+        AA, nx, angles, n_groups=8, device=dev)}
+    for kind, dt in (("float32", None), ("bfloat16", torch.bfloat16),
+                     ("int8", "int8")):
+        ops["bucketed " + kind] = BucketedDynamicBandedOperator.from_frames(
+            AA, nx, angles, n_groups=8, dtype=dt, n_buckets=3, device=dev)
+    print(f"[7] A {A.shape} nnz {A.nnz}: {nt} frames of {nx}x{nx}, "
+          f"{DYN['views']} views; problem in {t1 - t0:.2f} s, 4 packs in "
+          f"{time.perf_counter() - t1:.2f} s")
+    for kind, op in ops.items():
+        print(f"[7]   {kind}: {len(op._bks)} stacks, W "
+              f"{[tuple(k[0].shape) for k in op._bks]}, {op.stored_bytes} "
+              f"bytes")
+
+    # K1-K3 over all frames and stacks in one launch, against plain
+    names = tuple(REPLACES)
+    max_abs = {k: 0.0 for k in names}
+    for kind, op in ops.items():
+        X = torch.randn(nt, op.n_pad, op.n_pad, device=dev, generator=gen)
+        Y = torch.randn(nt, op.views, op.det_count, device=dev,
+                        generator=gen)
+        errs = {}
+        for name, a in frame_args(op, X, Y).items():
+            got = getattr(bk, name + "_buckets")(*a)
+            ref = getattr(bk, name + "_buckets_ref")(*a)
+            torch.cuda.synchronize()
+            check(got.shape == ref.shape, f"{name} frames {kind} shape")
+            errs[name] = rel(got, ref)
+            max_abs[name] = max(max_abs[name],
+                                float((got - ref).abs().max()))
+            check(errs[name] <= KERNEL_RTOL,
+                  f"{name} frames {kind} rel err {errs[name]!r}")
+        print(f"[7] {kind}, one launch over {nt} frames and "
+              f"{len(op._bks)} stacks vs plain, rel err: "
+              + ", ".join(f"{k} {v!r}" for k, v in errs.items()))
+    f32 = ops["flat float32"]
+    A64 = A.astype(np.float32).astype(np.float64)
+    rng = np.random.default_rng(2)
+    x = torch.tensor(rng.standard_normal(A.shape[1]), dtype=torch.float32,
+                     device=dev)
+    y = torch.tensor(rng.standard_normal(A.shape[0]), dtype=torch.float32,
+                     device=dev)
+    xd, yd = x.double().cpu().numpy(), y.double().cpu().numpy()
+    for name, got, ref in (
+            ("matvec", f32.matvec(x), A64 @ xd),
+            ("rmatvec", f32.rmatvec(y), A64.T @ yd),
+            ("normal_matvec", f32.normal_matvec(x), A64.T @ (A64 @ xd))):
+        e = rel(got.cpu(), torch.from_numpy(ref))
+        print(f"[7] flat float32 {name} vs host block-diagonal CSR "
+              f"(float64): rel err {e!r}")
+        check(e <= KERNEL_RTOL, f"dynamic {name} vs CSR {e!r}")
+    for kind, op in ops.items():
+        Ax, Aty = op.matvec(x), op.rmatvec(y)
+        gap = abs(float(Ax.double() @ y.double())
+                  - float(x.double() @ Aty.double()))
+        a = gap / float(Ax.double().norm() * y.double().norm())
+        print(f"[7] {kind} adjointness {a!r}")
+        check(a <= KERNEL_RTOL, f"dynamic {kind} adjointness {a!r}")
+    bk.reset_launch_counts()
+    f32.matvec(x)
+    f32.rmatvec(y)
+    f32.normal_matvec(x)
+    per = dict(bk.launch_counts)
+    print(f"[7] launches of one matvec, rmatvec and normal_matvec: {per}")
+    check(per == {"banded_fwd": 1, "banded_adj": 1, "banded_ata": 1},
+          f"dynamic: one launch per apply: {per}")
+    # the shared-geometry form: frame 0's pack for every frame (weight
+    # frame stride 0)
+    op0 = BucketedBandedProjector.from_scipy_fan(
+        AA[0], nx, None, angles=angles[0], n_groups=8, device=dev)
+    blk = BatchedBlockDiagOperator(op0, nt)
+    blk_plain = BatchedBlockDiagOperator(plain_copy(op0), nt)
+    xb = torch.randn(blk.shape[1], device=dev, generator=gen)
+    yb = torch.randn(blk.shape[0], device=dev, generator=gen)
+    calls = (("matvec", xb), ("rmatvec", yb), ("normal_matvec", xb))
+    bk.reset_launch_counts()
+    outs = {fn: getattr(blk, fn)(v) for fn, v in calls}
+    per = dict(bk.launch_counts)
+    errs = {fn: rel(outs[fn], getattr(blk_plain, fn)(v)) for fn, v in calls}
+    print(f"[7] BatchedBlockDiagOperator over frame 0's bucketed pack, "
+          f"{nt} frames: launches {per}; vs plain, rel err {errs}")
+    check(per == {"banded_fwd": 1, "banded_adj": 1, "banded_ata": 1},
+          f"block diagonal: one launch per apply: {per}")
+    check(max(errs.values()) <= KERNEL_RTOL, f"block diagonal {errs}")
+
+    # the dynamic demo's sequence: counts from 0 just before, read after
+    bv = torch.tensor(b, dtype=torch.float32, device=dev)
+    x0 = torch.zeros(A.shape[1], dtype=torch.float32, device=dev)
+    xt = torch.tensor(x_true, dtype=torch.float32, device=dev)
+    xt_norm = xt.norm()
+    L2 = FirstDerivative2D(nx, ny, device=dev)
+    frames = [(CsrOperator.from_scipy(AA[f], dtype=torch.float32,
+                                      device=dev),
+               torch.tensor(B[f], dtype=torch.float32, device=dev))
+              for f in range(nt)]
+
+    def static():
+        xs = [MMGKS(o, bf, L2, pnorm=2, qnorm=1, projection_dim=3,
+                    n_iter=DYN_STATIC_ITERS, regparam="gcv")[0].reshape(-1)
+              for o, bf in frames]
+        return torch.cat(xs), None
+
+    d, n = 4, DYN_ITERS
+    kw = dict(pnorm=2, qnorm=1, projection_dim=d, n_iter=n, regparam="gcv")
+    dims = dict(prob_dims=(nx, ny, nt))
+    # MMGKS: golub_kahan over d steps, A.matmat(V) (a K2 per column: the
+    # frame-varying pack has no column frames), A.rmatvec(b), then per
+    # iteration two K2 and one K3 (chip_smoke.demo_solves); the hybrid
+    # counts its own applies
+    mm = lambda info: (2 * d + 2 * n, d + 1 + n)  # noqa: E731
+    solves = {
+        "static per-frame MMGKS": (static, lambda info: (0, 0),
+                                   nt * DYN_STATIC_ITERS),
+        "dynamic MMGKS anisoTV": (lambda: MMGKS(
+            f32, bv, SpaceTimeDerivative(nx, ny, nt, device=dev), **kw),
+            mm, n),
+        "dynamic MMGKS isoTV": (lambda: MMGKS(
+            f32, bv, CenteredSpaceTimeDerivative(nx, ny, nt, device=dev),
+            isoTV="isoTV", **dims, **kw), mm, n),
+        "dynamic MMGKS GS": (lambda: MMGKS(f32, bv, None, GS="GS", **dims,
+                                           **kw), mm, n),
+        "Hybrid LSQR": (lambda: Hybrid_LSQR(f32, bv, n_iter=n,
+                                            regparam="gcv"),
+                        lambda info: (info["matvec_count"] // 2,) * 2, n),
+    }
+    walls, iters = {}, {}
+    bk.reset_launch_counts()
+    for name, (fn, expect, its) in solves.items():
+        before = dict(bk.launch_counts)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        xs, info = fn()
+        torch.cuda.synchronize()
+        walls[name] = (time.perf_counter() - t) / its * 1e3
+        iters[name] = its
+        got = {k: bk.launch_counts[k] - before[k] for k in before}
+        want = expect(info)
+        check(xs.numel() == A.shape[1] and bool(torch.isfinite(xs).all()),
+              f"{name} solution")
+        err = float(np.linalg.norm(xs.double().cpu().numpy().reshape(-1)
+                                   - x_true) / np.linalg.norm(x_true))
+        ref = JAX_DYN_RELERR[name]
+        print(f"[7] {name}: relError final {err!r} (JAX CPU {ref!r}, gate "
+              f"{DYN_GATE}); launches {got} (expected K2 {want[0]}, K3 "
+              f"{want[1]}); wall {walls[name]!r} ms/iter ({its} "
+              f"iterations, set-up included); card {card}")
+        check((got["banded_fwd"], got["banded_adj"]) == want
+              and got["banded_ata"] == 0, f"{name} launches {got} vs {want}")
+        check(abs(err - ref) <= DYN_GATE, f"{name} final relError {err!r}")
+    cgn_min = {}
+    for kind in ("float32", "int8"):
+        op = ops["bucketed " + kind]
+        before = dict(bk.launch_counts)
+        s, errs = _cgn_init(op, bv, x0), []
+        for it in range(1, DYN_CGN_ITERS + 1):
+            s = _cgn_chunk(op, 0.0, s, it)
+            errs.append(float((s.x - xt).norm() / xt_norm))
+        got = {k: bk.launch_counts[k] - before[k] for k in before}
+        check(bool(torch.isfinite(s.x).all()), f"cgls_normal {kind} finite")
+        cgn_min[kind] = min(errs)
+        print(f"[7] cgls_normal bucketed {kind}: relError final {errs[-1]!r}"
+              f", min {min(errs)!r} at iteration {int(np.argmin(errs)) + 1}"
+              f"; launches {got}")
+        check(got == {"banded_fwd": 0, "banded_adj": 1,
+                      "banded_ata": DYN_CGN_ITERS + 1},
+              f"cgls_normal {kind} launches {got}")
+    launches = dict(bk.launch_counts)
+    d8 = abs(cgn_min["int8"] - cgn_min["float32"])
+    print(f"[7] int8 vs float32 cgls_normal min relError gap {d8!r}; "
+          f"launches in the dynamic path: {launches}")
+    check(d8 <= INT8_ATOL, f"dynamic int8 min relError gap {d8!r}")
+    check(all(v > 0 for v in launches.values()),
+          "a kernel never launched in the dynamic path")
+    for kind in ("float32", "int8"):  # walls of the loop without reads
+        op = ops["bucketed " + kind]
+        cgls_normal(op, bv, x0, 2)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        cgls_normal(op, bv, x0, DYN_CGN_ITERS)
+        torch.cuda.synchronize()
+        name = f"cgls_normal bucketed {kind}"
+        walls[name] = (time.perf_counter() - t) / DYN_CGN_ITERS * 1e3
+        iters[name] = DYN_CGN_ITERS
+        solves[name] = ((lambda o: lambda: cgls_normal(
+            o, bv, x0, DYN_CGN_ITERS))(op), None, DYN_CGN_ITERS)
+        print(f"[7] {name}: wall {walls[name]!r} ms/iter "
+              f"({DYN_CGN_ITERS} iterations); card {card}")
+    return dict(A=A, ops=ops, launches=launches, max_abs=max_abs,
+                solves=solves, walls=walls, iters=iters, nt=nt)
+
+
+def dynamic_times(dyn, dev, card, gen):
+    """Phase 7's measurements: K1-K3 per apply over all frames, their
+    bounds, plain versions and the block-diagonal CSR product; each
+    solver's device busy time per iteration and idle share. -> the kernel
+    entries of the JSON line."""
+    import torch
+
+    from trips_tpu_torch.sparse import banded_kernels as bk
+
+    ops, nt = dyn["ops"], dyn["nt"]
+    names = tuple(REPLACES)
+    ms, bounds, plain_ms = {}, {}, {}
+    for kind, op in ops.items():
+        X = torch.randn(nt, op.n_pad, op.n_pad, device=dev, generator=gen)
+        Y = torch.randn(nt, op.views, op.det_count, device=dev,
+                        generator=gen)
+        args = frame_args(op, X, Y)
+        ms[kind] = {k: device_ms((lambda f, a: lambda: f(*a))(
+            getattr(bk, k + "_buckets"), args[k]), 10) for k in names}
+        if kind == "flat float32":
+            plain_ms = {k: device_ms((lambda f, a: lambda: f(*a))(
+                getattr(bk, k + "_buckets_ref"), args[k]), 3,
+                sessions=1) for k in names}
+        # least bytes: the stacks (W, S, Pm, scales) and, for K2/K3, the
+        # angle ids once; the images and sinograms in and out once; 2
+        # flops per nonzero weight and pass
+        pack = sum(nbytes(*k[:4]) for k in op._bks)
+        ids = nbytes(*op._aidx)
+        nz = sum(int((k[0] != 0).sum()) for k in op._bks)
+        img, sino = nbytes(X), nbytes(Y)
+        bounds[kind] = {
+            "banded_ata": bound(pack + 2 * img, 4 * nz, F32_FLOPS),
+            "banded_fwd": bound(pack + ids + img + sino, 2 * nz, F32_FLOPS),
+            "banded_adj": bound(pack + ids + sino + img, 2 * nz, F32_FLOPS)}
+        print(f"[7] {kind} one apply over {nt} frames ({pack} B of stacks, "
+              f"{nz} nonzero weights), device ms: " + "; ".join(
+                  f"{k} {ms[kind][k]!r} (bound {bounds[kind][k][0]!r}, "
+                  f"{bounds[kind][k][1]})" for k in names)
+              + f"; card {card}")
+    print(f"[7] plain versions (flat float32, device ms): {plain_ms}")
+    f32 = ops["flat float32"]
+    M = dyn["A"].astype(np.float32).tocsr()
+    MT = M.T.tocsr()
+    (Mt, idx), (MTt, _) = library_csr(M, dev), library_csr(MT, dev)
+    xv = torch.randn(M.shape[1], device=dev, generator=gen)
+    yv = torch.randn(M.shape[0], device=dev, generator=gen)
+    e_lib = max(rel(Mt @ xv, f32.matvec(xv)), rel(MTt @ yv, f32.rmatvec(yv)))
+    check(e_lib <= KERNEL_RTOL, f"block-diagonal CSR vs the pack {e_lib!r}")
+    lib_runs = {"banded_fwd": lambda: Mt @ xv, "banded_adj": lambda: MTt @ yv,
+                "banded_ata": lambda: MTt @ (Mt @ xv)}
+    library_ms = {k: device_ms(f, 10) for k, f in lib_runs.items()}
+    print(f"[7] library: the block-diagonal float32 CSR ({idx} indices, nnz "
+          f"{M.nnz}), agrees with the pack to {e_lib!r}: "
+          + "; ".join(f"{k} {v!r} ms" for k, v in library_ms.items())
+          + f"; card {card}")
+    for name, (fn, _, its) in dyn["solves"].items():
+        parts = {}
+        busy = device_ms(fn, 1, parts, sessions=1) / its
+        wall = dyn["walls"][name]
+        top = sorted(parts.items(), key=lambda kv: -kv[1])[:5]
+        print(f"[7] {name}: device busy {busy * 1e3!r} us/iter, wall "
+              f"{wall * 1e3!r} us/iter, idle share {1 - busy / wall!r}; "
+              f"busy by kernel (us/iter): "
+              + ", ".join(f"{k} {v / its * 1e3!r}" for k, v in top)
+              + f"; card {card}")
+    return [{"name": k + "_frames", "route": "cuda",
+             "source": "trips_tpu_torch/csrc/banded.cu",
+             "replaces": REPLACES[k], "launches": dyn["launches"][k],
+             "max_abs_err": dyn["max_abs"][k],
+             "ms": ms["flat float32"][k], "plain_ms": plain_ms[k],
+             "bound_ms": bounds["flat float32"][k][0],
+             "bound_by": bounds["flat float32"][k][1],
+             "library_ms": library_ms[k],
+             "path": "dynamic CT, 33 frames of 128x128, 10 views",
+             "storage": "flat float32",
+             "ms_by_storage": {c: v[k] for c, v in ms.items()},
+             "bound_ms_by_storage": {c: v[k][0] for c, v in bounds.items()},
+             "library": f"block-diagonal float32 CSR "
+                        f"(torch.sparse_csr_tensor, {idx} indices)"}
+            for k in names]
 
 
 def main():
@@ -723,20 +1079,17 @@ def main():
               and got["banded_ata"] == 0, f"{name} launches {got} vs {want}")
         check(abs(final - ref) <= gate, f"{name} final relError {final!r}")
 
-    # ---- 4. times ------------------------------------------------------
-    def plain(op):
-        p = copy.copy(op)
-        p._fwd, p._adj = bk.banded_fwd_buckets_ref, bk.banded_adj_buckets_ref
-        p._ata = bk.banded_ata_buckets_ref
-        return p
+    # ---- 7. dynamic CT: gates, launches, walls (before any profiler) ---
+    dyn = dynamic_path(dev, card, gen)
 
+    # ---- 4. times ------------------------------------------------------
     nnz = A.nnz
     kernel_wall = {}  # (path, kind, solver) -> ms/iter of the kernels' runs
     for kind, op in ops.items():
         for solver, fn in (("cgls_normal", cgls_normal), ("cgls", cgls)):
             walls = {}
-            for label, o in (("plain", plain(op)), ("kernels", op),
-                             ("kernels", op), ("plain", plain(op))):
+            for label, o in (("plain", plain_copy(op)), ("kernels", op),
+                             ("kernels", op), ("plain", plain_copy(op))):
                 fn(o, bv, x0, 2, 0.0)
                 torch.cuda.synchronize()
                 t = time.perf_counter()
@@ -1091,6 +1444,8 @@ def main():
                           **rotate_extra(name))
                     for name in SHEAR_REPLACES
                     if kind == "bfloat16" or name == "gcontract_ata"]
+    # ---- 7. dynamic CT: kernel times, solver profiles ------------------
+    kernels += dynamic_times(dyn, dev, card, gen)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -37,6 +37,8 @@ from trips_tpu_torch.operators.shear_kernels import (SMEM_BYTES as
                                                      rotate_smem_bytes)
 from trips_tpu_torch.problems import (Tomography, device_sparse_operator,
                                       fan_beam_matrix)
+from trips_tpu_torch import sparse
+from trips_tpu_torch.core import aslinearoperator
 from trips_tpu_torch.sparse import BucketedBandedProjector
 from trips_tpu_torch.sparse.banded_kernels import (SMEM_BYTES, launch_plan,
                                                    tile_plan)
@@ -197,6 +199,21 @@ def _entry_points():
         "ShearStackParallelProjector": (
             ShearStackParallelProjector,
             lambda: ShearStackParallelProjector(8, theta)),
+        "BandedProjector.from_scipy_fan": (
+            sparse.BandedProjector.from_scipy_fan,
+            lambda: sparse.BandedProjector.from_scipy_fan(
+                A, 8, None, angles=theta, n_groups=1)),
+        "DynamicBandedOperator.from_frames": (
+            sparse.DynamicBandedOperator.from_frames,
+            lambda: sparse.DynamicBandedOperator.from_frames(
+                [A, A], 8, [theta, theta], n_groups=1)),
+        "BucketedDynamicBandedOperator.from_frames": (
+            sparse.BucketedDynamicBandedOperator.from_frames,
+            lambda: sparse.BucketedDynamicBandedOperator.from_frames(
+                [A, A], 8, [theta, theta], n_groups=1)),
+        "CsrOperator.from_scipy": (sparse.CsrOperator.from_scipy,
+                                   lambda: sparse.CsrOperator.from_scipy(A)),
+        "aslinearoperator": (aslinearoperator, lambda: aslinearoperator(A)),
     }
 
 

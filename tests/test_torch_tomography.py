@@ -101,10 +101,15 @@ def test_cgls_relerror_history_matches_jax():
 
 
 def test_unsupported_geometry_and_images_raise():
+    """A geometry without the pack's metadata is no longer refused: it
+    falls back to the CSR operator, as the JAX package falls back to ELL
+    (``tests/test_torch_csr.py``). The image phantoms still raise."""
+    from trips_tpu_torch.sparse import CsrOperator
+
     A = tp.fan_beam_matrix(8, views=4)
-    with pytest.raises(NotImplementedError):
-        tp.device_sparse_operator(A, nx=None, angles=np.zeros(4),
-                                  device="cpu")
+    assert isinstance(tp.device_sparse_operator(A, nx=None,
+                                                angles=np.zeros(4),
+                                                device="cpu"), CsrOperator)
     with pytest.raises(NotImplementedError):
         tp.Tomography(device="cpu").gen_true("SL60", nx=8, ny=8)
 
@@ -112,7 +117,11 @@ def test_unsupported_geometry_and_images_raise():
 def test_import_loads_no_jax():
     code = ("import sys, trips_tpu_torch, trips_tpu_torch.problems, "
             "trips_tpu_torch.solvers, trips_tpu_torch.krylov, "
-            "trips_tpu_torch.operators\n"
+            "trips_tpu_torch.operators, trips_tpu_torch.sparse, "
+            "trips_tpu_torch.core, trips_tpu_torch.regparam, "
+            "trips_tpu_torch.utils, trips_tpu_torch.problems.dynamic, "
+            "trips_tpu_torch.sparse.dynamic_banded, "
+            "trips_tpu_torch.sparse.csr, trips_tpu_torch.sparse.banded\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'trips_tpu.'))]\n"
             "assert not bad, bad\n")

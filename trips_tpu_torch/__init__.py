@@ -6,13 +6,15 @@ the matrix-free projectors (the shear-rotate fan projector with
 hand-written CUDA kernels, the on-the-fly and shear-stack projectors), and
 the regularized solvers of the tomography demo (Golub-Kahan and Arnoldi,
 the derivative and weight operators, GCV/DP/L-curve, GKS, MMGKS, the hybrid
-and projection solvers). The JAX package ``trips_tpu`` is the reference
+and projection solvers), and dynamic CT (the flat, dynamic and CSR
+operators over the same kernels, the dynamic problems and loaders). The JAX
+package ``trips_tpu`` is the reference
 each part is tested against.
 """
 import torch
 
 from . import (core, krylov, operators, problems, regparam,  # noqa: F401
-               solvers, sparse)
+               solvers, sparse, utils)
 from .core import LinearOperator, aslinearoperator  # noqa: F401
 
 __version__ = "0.1.0"

@@ -165,7 +165,9 @@ class ScaledOperator(LinearOperator):
 class BatchedBlockDiagOperator(LinearOperator):
     """``diag(B, B, ..., B)`` with ``nt`` repeats of one shared operator
     ``B``: the frames of a dynamic problem, applied as the columns of one
-    ``B.matmat`` (the JAX package vmaps ``B`` over them)."""
+    ``B.matmat`` (the JAX package vmaps ``B`` over them). Over a banded
+    operator that is one kernel launch over all frames on its one pack,
+    the normal apply too (``B.normal_matmat``)."""
 
     def __init__(self, op, nt):
         self.op = op
@@ -184,8 +186,10 @@ class BatchedBlockDiagOperator(LinearOperator):
 
     def normal_matvec(self, x):
         """Per-frame ``B^T B``, through ``B``'s fused normal apply where it
-        has one."""
+        has one (over all frames at once where it has ``normal_matmat``)."""
         X = x.reshape(self.nt, self.op.shape[1])
+        if hasattr(self.op, "normal_matmat"):
+            return self.op.normal_matmat(X.T).T.reshape(-1)
         fn = getattr(self.op, "normal_matvec",
                      lambda v: self.op.rmatvec(self.op.matvec(v)))
         return torch.stack([fn(f) for f in X]).reshape(-1)
@@ -205,11 +209,14 @@ class BatchedBlockDiagOperator(LinearOperator):
         return self._frames(M, self.op.shape[0], self.op.rmatmat)
 
 
-def aslinearoperator(A) -> LinearOperator:
+def aslinearoperator(A, device=DEFAULT) -> LinearOperator:
+    """An operator as it is; a scipy sparse matrix as a ``CsrOperator`` in
+    its dtype on ``device`` (where the JAX package makes an
+    ``EllOperator``); anything else as a ``DenseOperator``."""
     if isinstance(A, LinearOperator):
         return A
-    if hasattr(A, "toarray"):
-        raise NotImplementedError(
-            "scipy sparse matrices have no torch operator yet; pack a fan "
-            "geometry with BucketedBandedProjector.from_scipy_fan")
+    if hasattr(A, "toarray"):  # scipy sparse
+        from ..sparse.csr import CsrOperator
+
+        return CsrOperator.from_scipy(A, device=device)
     return DenseOperator(A)

@@ -54,6 +54,19 @@
 //   reloads all but the last, from L2 if it still holds them.
 // A bucket with cols = 1 drives the transposed image XT and adds its
 // image transposed (K1, K3 through strides).
+//
+// Frames. One launch applies the buckets to nf frames: the images X, XT
+// and the K1/K3 output are (nf, n, n), the sinogram (nf, rows, p). A
+// bucket's pack either holds one stack per frame, (nf * na) angles with
+// frame f's at f * na .. (the dynamic operators' frame-varying geometry),
+// or one stack that every frame shares (frame angle stride fa = 0: a
+// shared-geometry block diagonal, or the columns of a matmat). This is
+// the JAX package's jax.vmap of _fwd_call, _adj_call and _ata_call over
+// frames (trips_tpu/sparse/dynamic_banded.py:158-192): here the frame is
+// one more index of the grid, innermost, so the blocks that read one
+// shared slab run together and find it in L2. Angle ids are rows of the
+// frame's own sinogram; an id outside [0, rows) (the dynamic pack's padded
+// angles carry id `rows`) writes and reads nothing.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -106,6 +119,7 @@ struct Buckets {
   const float* scales[kMaxBuckets];
   const int* aidx[kMaxBuckets];  // K2, K3: sinogram row of each angle
   int T[kMaxBuckets], L[kMaxBuckets], Tb[kMaxBuckets];
+  int fa[kMaxBuckets];          // frame f's angle a is pack angle f fa + a
   int cols[kMaxBuckets];        // 1: drives XT, adds its image transposed
   int start[kMaxBuckets + 1];   // first block of each bucket
   int nb;
@@ -116,11 +130,13 @@ struct Args {
   const float* inT;  // X transposed, for the cols buckets (K1, K2)
   float* out;        // K2: the (rows, p) sinogram; K1, K3: (n, n), zeroed
   int p, rows, n, p_pad, G, parts, lines;
+  int nf;            // frames: in, inT and out hold nf of the above
 };
 
-// One block's share of a (bucket, angle, DET detectors) tile.
+// One block's share of a (bucket, frame, angle, DET detectors) tile; g is
+// the angle's index in the bucket's pack.
 struct Tile {
-  int b, a, d0, part, i0, i1, nchunks, T, L, Tb;
+  int b, f, g, d0, part, i0, i1, nchunks, T, L, Tb;
   float sc;
   const int* Sa;
   const int* Pma;
@@ -133,19 +149,21 @@ __device__ __forceinline__ Tile tile_of(const Buckets& B, const Args& A) {
   while (b + 1 < B.nb && static_cast<int>(blockIdx.x) >= B.start[b + 1]) ++b;
   const int k = static_cast<int>(blockIdx.x) - B.start[b];
   const int tile = k / A.parts, dchunks = (A.p_pad + DET - 1) / DET;
+  const int ad = tile / A.nf;  // (angle, detector chunk); frame innermost
   t.b = b;
   t.part = k % A.parts;  // the cluster rank where the parts are a cluster
-  t.a = tile / dchunks;
-  t.d0 = (tile % dchunks) * DET;
+  t.f = tile % A.nf;
+  t.g = t.f * B.fa[b] + ad / dchunks;
+  t.d0 = (ad % dchunks) * DET;
   t.T = B.T[b];
   t.L = B.L[b];
   t.Tb = B.Tb[b];
   t.i0 = t.part * A.lines;
   t.i1 = min(A.n, t.i0 + A.lines);
   t.nchunks = t.i1 > t.i0 ? (t.i1 - t.i0 + t.L - 1) / t.L : 0;
-  t.sc = B.scales[b] ? B.scales[b][t.a] : 1.f;
-  t.Sa = B.S[b] + static_cast<size_t>(t.a) * A.n;
-  t.Pma = B.Pm[b] + static_cast<size_t>(t.a) * A.G * A.p_pad;
+  t.sc = B.scales[b] ? B.scales[b][t.g] : 1.f;
+  t.Sa = B.S[b] + static_cast<size_t>(t.g) * A.n;
+  t.Pma = B.Pm[b] + static_cast<size_t>(t.g) * A.G * A.p_pad;
   return t;
 }
 
@@ -168,7 +186,7 @@ __device__ __forceinline__ void load_chunk(uint8_t* smem, const Buckets& B,
     hopper::bar_expect_tx(bar, t.T * tstride * sizeof(WT));
     for (int t0 = 0; t0 < t.T; t0 += t.Tb) {
       hopper::tma_load_3d(smem + t0 * tstride * sizeof(WT), &B.map[t.b], bar,
-                          t.d0, t.i0 + c * t.L, t.a * t.T + t0);
+                          t.d0, t.i0 + c * t.L, t.g * t.T + t0);
     }
   }
   hopper::bar_wait(bar, phase);
@@ -255,7 +273,8 @@ __global__ void __launch_bounds__(kThreads)
   const Tile t = tile_of<DET>(B, A);
   const int lane = threadIdx.x % DET, slice = threadIdx.x / DET;
   const int d = min(t.d0 + lane, A.p_pad - 1);
-  const float* Xb = B.cols[t.b] ? A.inT : A.in;
+  const size_t img = static_cast<size_t>(A.n) * A.n;
+  const float* Xb = (B.cols[t.b] ? A.inT : A.in) + t.f * img;
   init_bar(&bar);
   uint32_t phase = 0;
   float acc = 0.f;
@@ -271,9 +290,9 @@ __global__ void __launch_bounds__(kThreads)
     float y = 0.f;
     for (int r = 0; r < A.parts; ++r)
       y += cluster.map_shared_rank(ypart, r)[lane];
-    const int row = B.aidx[t.b][t.a], dd = t.d0 + lane;
+    const int row = B.aidx[t.b][t.g], dd = t.d0 + lane;
     if (dd < A.p && row >= 0 && row < A.rows)
-      A.out[static_cast<size_t>(row) * A.p + dd] = y;
+      A.out[(static_cast<size_t>(t.f) * A.rows + row) * A.p + dd] = y;
   }
   cluster.sync();  // no block leaves while rank 0 reads its ypart
 }
@@ -287,18 +306,20 @@ __global__ void __launch_bounds__(kThreads)
   const Tile t = tile_of<DET>(B, A);
   const int lane = threadIdx.x % DET, slice = threadIdx.x / DET;
   const int dd = t.d0 + lane, d = min(dd, A.p_pad - 1);
-  const int row = B.aidx[t.b][t.a];
-  const float yd = dd < A.p && row >= 0 && row < A.rows
-                       ? A.in[static_cast<size_t>(row) * A.p + dd]
-                       : 0.f;
+  const int row = B.aidx[t.b][t.g];
+  const float yd =
+      dd < A.p && row >= 0 && row < A.rows
+          ? A.in[(static_cast<size_t>(t.f) * A.rows + row) * A.p + dd]
+          : 0.f;
   const size_t ri = B.cols[t.b] ? 1 : A.n, ci = B.cols[t.b] ? A.n : 1;
+  float* out = A.out + t.f * static_cast<size_t>(A.n) * A.n;
   init_bar(&bar);
   uint32_t phase = 0;
   for (int c = 0; c < t.nchunks; ++c) {
     if (c > 0) __syncthreads();
     load_chunk<WT, DET>(smem_raw, B, t, &bar, phase, c);
     if (yd != 0.f)
-      adj_chunk<WT, DET>(slab, A.out, ri, ci, t, A, c, lane, slice, d, yd);
+      adj_chunk<WT, DET>(slab, out, ri, ci, t, A, c, lane, slice, d, yd);
   }
 }
 
@@ -315,7 +336,9 @@ __global__ void __launch_bounds__(kThreads)
   const Tile t = tile_of<DET>(B, A);
   const int lane = threadIdx.x % DET, slice = threadIdx.x / DET;
   const int d = min(t.d0 + lane, A.p_pad - 1);
-  const float* Xb = B.cols[t.b] ? A.inT : A.in;
+  const size_t img = static_cast<size_t>(A.n) * A.n;
+  const float* Xb = (B.cols[t.b] ? A.inT : A.in) + t.f * img;
+  float* out = A.out + t.f * img;
   const size_t ri = B.cols[t.b] ? 1 : A.n, ci = B.cols[t.b] ? A.n : 1;
   init_bar(&bar);
   uint32_t phase = 0;
@@ -342,7 +365,7 @@ __global__ void __launch_bounds__(kThreads)
       __syncthreads();
       load_chunk<WT, DET>(smem_raw, B, t, &bar, phase, c);
     }
-    adj_chunk<WT, DET>(slab, A.out, ri, ci, t, A, c, lane, slice, d, yd);
+    adj_chunk<WT, DET>(slab, out, ri, ci, t, A, c, lane, slice, d, yd);
   }
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
@@ -370,13 +393,14 @@ template <typename WT, int DET>
 int launch(int op, int nb, const void* const* W, const void* const* S,
            const void* const* Pm, const void* const* scales,
            const void* const* aidx, const int* na, const int* T,
-           const int* L, const int* Tb, const int* cols, const Args& A,
-           cudaStream_t stream) {
+           const int* L, const int* Tb, const int* cols, const int* fa,
+           const Args& A, cudaStream_t stream) {
   const int bad = static_cast<int>(cudaErrorInvalidValue);
   const bool cluster = op != kAdj;  // K3's parts need no shared memory
   if (op < kFwd || op > kAta || nb < 1 || nb > kMaxBuckets || A.parts < 1 ||
       (cluster && A.parts > kMaxCluster) || A.lines < 1 || A.G < 1 ||
-      A.n % A.G || static_cast<long long>(A.parts) * A.lines < A.n)
+      A.n % A.G || static_cast<long long>(A.parts) * A.lines < A.n ||
+      A.nf < 1)
     return bad;
   if (op != kAta && (!aidx || A.p < 1 || A.p > A.p_pad || A.rows < 1))
     return bad;
@@ -386,13 +410,19 @@ int launch(int op, int nb, const void* const* W, const void* const* S,
   long long blocks = 0, smem = 0;
   for (int k = 0; k < nb; ++k) {
     if (na[k] < 1 || T[k] < 1 || L[k] < 1 || L[k] > 256 || Tb[k] < 1 ||
-        Tb[k] > 256 || T[k] % Tb[k] || (op != kAta && !aidx[k]))
+        Tb[k] > 256 || T[k] % Tb[k] || fa[k] < 0 ||
+        (op != kAta && !aidx[k]))
       return bad;
+    // the pack holds (nf - 1) fa + na angles: one stack per frame, or one;
+    // TMA coordinates are int32
+    const long long angles =
+        static_cast<long long>(A.nf - 1) * fa[k] + na[k];
+    if (angles * T[k] > 0x7fffffff) return bad;
     smem = std::max(smem, static_cast<long long>(T[k]) * L[k] * DET *
                               static_cast<long long>(sizeof(WT)));
     const uint64_t dims[3] = {static_cast<uint64_t>(A.p_pad),
                               static_cast<uint64_t>(A.n),
-                              static_cast<uint64_t>(na[k]) * T[k]};
+                              static_cast<uint64_t>(angles) * T[k]};
     const uint32_t box[3] = {DET, static_cast<uint32_t>(L[k]),
                              static_cast<uint32_t>(Tb[k])};
     const int err = hopper::tensor_map(&B.map[k], W[k], TmaType<WT>::value,
@@ -407,11 +437,13 @@ int launch(int op, int nb, const void* const* W, const void* const* S,
     B.L[k] = L[k];
     B.Tb[k] = Tb[k];
     B.cols[k] = cols[k];
+    B.fa[k] = fa[k];
     B.start[k] = static_cast<int>(blocks);
     blocks += static_cast<long long>(A.parts) * ((A.p_pad + DET - 1) / DET) *
-              na[k];
+              na[k] * A.nf;
+    if (blocks > 0x7fffffff) return bad;
   }
-  if (smem > kSmemMax || blocks > 0x7fffffff) return bad;
+  if (smem > kSmemMax) return bad;
   B.start[nb] = static_cast<int>(blocks);
   void (*kern)(Buckets, Args) = op == kFwd   ? &fwd_kernel<WT, DET>
                                 : op == kAdj ? &adj_kernel<WT, DET>
@@ -451,31 +483,35 @@ int trips_banded_max_buckets() { return kMaxBuckets; }
 // trips_banded_max_buckets()) buckets of one pack, one storage kind (kind:
 // 0 float32, 1 bfloat16, 2 int8). Per bucket k: its W, S, Pm, scales (null
 // unless int8), angle ids aidx (int32 (na,), the sinogram row of each
-// angle; K2 and K3 only), na, T, and from its plan
+// angle; K2 and K3 only), na (angles per frame), T, and from its plan
 // (sparse/banded_kernels.py launch_plan) lines per chunk L and taps per
 // TMA box Tb (a divisor of T); cols[k] = 1 drives XT (inT) and adds its
-// image transposed. Shared by all: the detectors per tile det (32 or 64),
-// the parts that split a tile's lines (a cluster for K1 and K2) and lines
-// per part.
-// K2: in X, inT XT, out the (rows, p) float32 sinogram (row aidx[k][a],
-//     detectors d < p).
-// K3: in the (rows, p) sinogram, out the (n, n) image, zeroed.
-// K1: in X, inT XT, out the (n, n) image, zeroed; aidx, p, rows unused.
+// image transposed; fa[k] its frame angle stride (na[k] where W, S, Pm,
+// scales and aidx hold nf stacks of na[k] angles, 0 where the frames share
+// one). Shared by all: the detectors per tile det (32 or 64), the parts
+// that split a tile's lines (a cluster for K1 and K2), lines per part, and
+// the frames nf.
+// K2: in X, inT XT (nf, n, n), out the (nf, rows, p) float32 sinogram
+//     (frame f's angle a writes row aidx[k][f fa + a] of frame f's
+//     sinogram, detectors d < p, if that id lies in [0, rows)).
+// K3: in the (nf, rows, p) sinogram, out the (nf, n, n) images, zeroed.
+// K1: in X, inT, out the (nf, n, n) images, zeroed; aidx, p, rows unused.
 int trips_banded(int op, int kind, int nb, const void* const* W,
                  const void* const* S, const void* const* Pm,
                  const void* const* scales, const void* const* aidx,
                  const int* na, const int* T, const int* L, const int* Tb,
-                 const int* cols, const void* in, const void* inT, void* out,
-                 int p, int rows, int n, int p_pad, int G, int det, int parts,
-                 int lines, void* stream) {
+                 const int* cols, const int* fa, const void* in,
+                 const void* inT, void* out, int p, int rows, int n,
+                 int p_pad, int G, int det, int parts, int lines, int nf,
+                 void* stream) {
   const Args A = {static_cast<const float*>(in),
                   static_cast<const float*>(inT), static_cast<float*>(out),
-                  p, rows, n, p_pad, G, parts, lines};
+                  p, rows, n, p_pad, G, parts, lines, nf};
   auto go = [&](auto tag) {
     using WT = decltype(tag);
     auto run = [&](auto det_tag) {
       return launch<WT, decltype(det_tag)::value>(
-          op, nb, W, S, Pm, scales, aidx, na, T, L, Tb, cols, A,
+          op, nb, W, S, Pm, scales, aidx, na, T, L, Tb, cols, fa, A,
           static_cast<cudaStream_t>(stream));
     };
     if (det == 32) return run(std::integral_constant<int, 32>{});

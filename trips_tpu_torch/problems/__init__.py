@@ -1,6 +1,9 @@
 from . import phantoms
+from .dynamic import (generate_crossPhantom, generate_emoji, generate_stempo,
+                      generate_synthetic_dynamic)
 from .projector import fan_beam_matrix, parallel_beam_matrix
 from .tomography import Tomography, device_sparse_operator
 
 __all__ = ["Tomography", "device_sparse_operator", "fan_beam_matrix",
-           "parallel_beam_matrix", "phantoms"]
+           "generate_crossPhantom", "generate_emoji", "generate_stempo",
+           "generate_synthetic_dynamic", "parallel_beam_matrix", "phantoms"]

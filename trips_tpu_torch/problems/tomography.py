@@ -6,15 +6,16 @@ Counterpart of ``trips_tpu/problems/tomography.py`` (API parity with
 pixel size (so+od)/so), data generated with angles shifted by 1e-8 rad to
 avoid the inverse crime, and a solver-facing operator on ``device`` (the
 CUDA card unless ``device="cpu"``): the Ta-bucketed banded pack of the
-host CSR matrix.
+host CSR matrix, or the CSR matrix itself where the pack does not apply.
 """
 from __future__ import annotations
 
 import numpy as np
 import scipy.linalg as sla
+import torch
 
 from ..core.device import DEFAULT, resolve
-from ..sparse import BucketedBandedProjector
+from ..sparse import BucketedBandedProjector, CsrOperator
 from . import phantoms as phantom
 from .projector import fan_beam_matrix
 
@@ -24,15 +25,21 @@ def device_sparse_operator(A_csr, dtype=np.float32, nx=None, angles=None,
     """Pack a host CSR fan/parallel matrix as the bucketed banded operator
     (32 line groups, 4 buckets) on ``device`` (the card unless "cpu" is
     asked for). ``dtype``: float32 (the exact matrix), bfloat16 or "int8".
-    Needs the square-grid geometry (``nx`` and ``angles``); other
-    geometries have no torch operator yet."""
-    if nx is None or angles is None or A_csr.shape[1] != nx * nx:
-        raise NotImplementedError(
-            "only square grids with known angles have a torch operator "
-            "(the bucketed banded pack); pass nx and angles")
-    return BucketedBandedProjector.from_scipy_fan(
-        A_csr, nx, views=None, angles=np.asarray(angles), n_groups=32,
-        dtype=dtype, device=device)
+    Where the pack does not apply (no square-grid geometry: ``nx`` and
+    ``angles`` missing or ``A_csr`` not ``(m, nx*nx)``; or a geometry the
+    pack refuses), the matrix becomes a ``CsrOperator``, where the JAX
+    package falls back to ELL or BSR. The CSR operator holds the exact
+    float32 matrix whatever ``dtype`` asks for: torch has no bfloat16 or
+    scaled int8 CSR product to give it."""
+    device = resolve(device)
+    if nx is not None and angles is not None and A_csr.shape[1] == nx * nx:
+        try:
+            return BucketedBandedProjector.from_scipy_fan(
+                A_csr, nx, views=None, angles=np.asarray(angles),
+                n_groups=32, dtype=dtype, device=device)
+        except (ValueError, IndexError):  # pack precondition -> fallback
+            pass
+    return CsrOperator.from_scipy(A_csr, dtype=torch.float32, device=device)
 
 
 class Tomography:

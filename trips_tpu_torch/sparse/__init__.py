@@ -1,3 +1,8 @@
+from .banded import BandedProjector
 from .banded_buckets import BucketedBandedProjector
+from .csr import CsrOperator
+from .dynamic_banded import (BucketedDynamicBandedOperator,
+                             DynamicBandedOperator)
 
-__all__ = ["BucketedBandedProjector"]
+__all__ = ["CsrOperator", "BandedProjector", "BucketedBandedProjector",
+           "DynamicBandedOperator", "BucketedDynamicBandedOperator"]

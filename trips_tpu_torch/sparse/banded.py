@@ -1,144 +1,89 @@
-"""Shear-packed band format: host pack and dequantization.
+"""The flat shear-packed banded projector on torch tensors.
 
-Packing (host NumPy, exact: every nnz keeps its float32 value and
-position) stores, per angle, a weight slab ``W (T, n_pad, p_pad)`` with
-
-    column(a, i, d, t) = shift[a, i] + P[a, g(i), d] + t,   0 <= t < T
-
-where ``shift`` is a per-(angle, line) integer shear, ``P`` a per-group
-integer predictor (``g(i)`` groups ``n_pad / G`` consecutive lines) and the
-tap axis ``T`` absorbs the per-line residual. The drive axis per angle
-follows Joseph's rule (rows when |cos th| >= |sin th|, else columns, on the
-transposed image). Padded lines (``i >= nx``) and padded lanes
-(``d >= p``) carry zero weight, so an apply may wrap columns mod ``n_pad``
-without masks.
-
-The pack functions are NumPy copies of ``trips_tpu/sparse/banded.py``
-(without its native C++ accelerator) and give byte-identical stacks from the
-same CSR matrix. The applies on a packed group, and their plain versions
-(the twin of ``trips_tpu``'s ``apply_group_xla(..., wrap=True)``), are in
-``banded_kernels.py``.
+Counterpart of ``trips_tpu/sparse/banded.py``'s ``BandedProjector``: one
+stack per drive orientation at the group-wide tap width, ``W_rows (na_r,
+T_rows, n_pad, p_pad)`` for the angles driven along image rows and
+``W_cols`` for those driven along columns (on the transposed image), with
+their raw shears ``shift_*`` and predictors ``P_*`` and the global angle
+ids ``_angles_*``. The two stacks are two buckets of one kernel launch
+(``banded_kernels``): ``matvec`` (K2), ``rmatvec`` (K3) and the fused
+``normal_matvec`` (K1) each launch once, as ``BucketedBandedProjector``
+does. On CPU tensors the wrappers take the plain versions, which play the
+part of the JAX package's ``matvec_xla`` and ``rmatvec_xla``.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from ..core.device import DEFAULT, resolve
+from .banded_buckets import BucketedBandedProjector, _storage, _to_torch
+from .pack import _pack_groups, _stack_packs
 
 
-def _pack_angle(coo_d, coo_i, coo_c, coo_v, n, p, n_groups, n_pad=None):
-    """Pack one angle's (detector, line, column, value) triplets.
+class BandedProjector(BucketedBandedProjector):
+    """Exact banded repack of an angle-major projector matrix; storage
+    float32 (exact) or bfloat16."""
 
-    Returns ((t, line, detector, value) scatter coordinates, T_a,
-    shift (n_pad,) int32, P (n_groups, p) int32) with
-    column = shift[i] + P[g(i), d] + t.
-    """
-    n_pad = n if n_pad is None else n_pad
-    # minimum observed column per (line, detector): cmin[i, d]
-    cmin = np.full((n, p), np.iinfo(np.int32).max, np.int64)
-    np.minimum.at(cmin, (coo_i, coo_d), coo_c)
-    have_id = cmin < np.iinfo(np.int32).max
+    def __init__(self, W_rows, shift_rows, P_rows, angles_rows, W_cols,
+                 shift_cols, P_cols, angles_cols, shape, nx, p, n_groups,
+                 nnz, n_pad=None, device=DEFAULT):
+        if torch.as_tensor(W_rows).dtype == torch.int8:
+            raise ValueError("the flat pack stores float32 or bfloat16; "
+                             "int8 needs BucketedBandedProjector's scales")
+        super().__init__([(W_rows, shift_rows, P_rows),
+                          (W_cols, shift_cols, P_cols)],
+                         [angles_rows, angles_cols], [False, True], shape,
+                         nx, p, n_groups, nnz,
+                         nx if n_pad is None else n_pad, device=device)
+        (self.W_rows, self.shift_rows, self.P_rows), \
+            (self.W_cols, self.shift_cols, self.P_cols) = self.stacks
+        self._angles_rows, self._angles_cols = self.aidxs
 
-    # per-line integer shear: the line's median start, int(np.median(...))
-    # semantics (floor of the two middle elements' average)
-    shift = np.zeros(n_pad, np.int64)
-    have_i = have_id.any(axis=1)
-    cnt = have_id.sum(axis=1)
-    vals = np.where(have_id, cmin, np.iinfo(np.int64).max)
-    vals.sort(axis=1)
-    rows = np.arange(n)
-    safe = np.maximum(cnt, 1)
-    lo = vals[rows, (safe - 1) // 2]
-    hi = vals[rows, np.minimum(safe // 2, p - 1)]
-    shift[:n] = np.where(have_i, (lo + hi) // 2, 0)
+    @classmethod
+    def from_scipy_fan(cls, A, nx, views, angles=None, n_groups=64,
+                       dtype=None, lane_pad=128, device=DEFAULT):
+        """Pack an angle-major fan/parallel CSR matrix (rows = a*p + d).
+        ``dtype``: None/float32 (exact) or bfloat16."""
+        device = resolve(device)
+        kind = _storage(dtype)
+        if kind == "int8":
+            raise ValueError("the flat pack stores float32 or bfloat16")
+        packs, idx, angles, p, n_pad = _pack_groups(A, nx, views, angles,
+                                                    n_groups)
+        p_pad = -(-p // lane_pad) * lane_pad
+        groups = []
+        for dr in (True, False):
+            if packs[dr]:
+                W, S, P = _stack_packs(packs[dr], n_pad, p, p_pad)
+            else:
+                W = np.zeros((0, 1, n_pad, p_pad), np.float32)
+                S = np.zeros((0, n_pad), np.int32)
+                P = np.zeros((0, n_groups, p_pad), np.int32)
+            W = torch.from_numpy(W)
+            if kind == "bfloat16":
+                W = W.to(torch.bfloat16)  # round to nearest even
+            groups += [W, torch.from_numpy(S), torch.from_numpy(P),
+                       idx[dr]]
+        return cls(*groups, A.shape, nx, p, n_groups, A.nnz, n_pad=n_pad,
+                   device=device)
 
-    # per-group predictor: P[g, d] = min over the group's lines of
-    # (cmin - shift); leaves only the within-group slope to the taps
-    gsize = n_pad // n_groups
-    g_of = np.arange(n) // gsize
-    rel = np.where(have_id, cmin - shift[:n, None],
-                   np.iinfo(np.int32).max)
-    P = np.full((n_groups, p), np.iinfo(np.int32).max, np.int64)
-    np.minimum.at(P, (g_of[:, None].repeat(p, 1), np.arange(p)[None, :]
-                      .repeat(n, 0)), rel)
-    # (g, d) cells with no data: nearest present detector of the group
-    for g in range(n_groups):
-        miss = P[g] == np.iinfo(np.int32).max
-        if miss.all():
-            P[g] = 0
-        elif miss.any():
-            ok = np.nonzero(~miss)[0]
-            P[g, miss] = P[g, ok[np.argmin(
-                np.abs(np.nonzero(miss)[0][:, None] - ok[None, :]), axis=1)]]
+    @classmethod
+    def from_numpy_stacks(cls, W_rows, shift_rows, P_rows, angles_rows,
+                          W_cols, shift_cols, P_cols, angles_cols, shape, nx,
+                          p, n_groups, nnz, n_pad=None, device=DEFAULT):
+        """Build from NumPy copies of another pack's arrays (for instance
+        ``trips_tpu``'s, bfloat16 as ml_dtypes arrays): the same bytes."""
+        device = resolve(device)
+        t = [_to_torch(a, device) for a in (W_rows, shift_rows, P_rows,
+                                              W_cols, shift_cols, P_cols)]
+        return cls(*t[:3], angles_rows, *t[3:], angles_cols, shape, nx, p,
+                   n_groups, nnz, n_pad=n_pad, device=device)
 
-    t = coo_c - shift[coo_i] - P[g_of[coo_i], coo_d]
-    if not (t >= 0).all():
-        raise ValueError("pack invariant violated: negative tap offset")
-    T_a = int(t.max()) + 1 if len(t) else 1
-    return ((t, coo_i, coo_d, coo_v), T_a, shift.astype(np.int32),
-            P.astype(np.int32))
+    @property
+    def T_rows(self):
+        return self.W_rows.shape[1] if self.W_rows.numel() else 0
 
-
-def _pack_groups(A, nx, views, angles, n_groups):
-    """Angle-major matrix -> per-angle pack results split by drive
-    orientation. Returns (packs, idx, angles, p, n_pad) where packs[dr] is a
-    list of ``_pack_angle`` results and idx[dr] the matching angle ids."""
-    angles = (np.linspace(0, np.pi, views, endpoint=False)
-              if angles is None else np.asarray(angles))
-    coo = A.tocoo()
-    p = A.shape[0] // len(angles)
-    n = nx
-    # lane-align the roll axis; padded lines are zero-weight
-    n_pad = -(-n // 128) * 128
-    if n_pad % n_groups:
-        raise ValueError(
-            f"n_groups={n_groups} must divide the padded grid "
-            f"{n_pad} (nx={n} padded to the next multiple of 128); "
-            f"pick n_groups from the divisors of {n_pad}.")
-    drive_rows = np.abs(np.cos(angles)) >= np.abs(np.sin(angles))
-    packs = {True: [], False: []}
-    idx = {True: [], False: []}
-    d_of = (coo.row % p).astype(np.int32, copy=False)
-    i_img = (coo.col // nx).astype(np.int32, copy=False)
-    j_img = (coo.col % nx).astype(np.int32, copy=False)
-    vals = (coo.data if coo.data.dtype == np.float32
-            else coo.data.astype(np.float32))
-    # angle-major rows: each angle is one contiguous slice of the COO
-    if getattr(A, "format", None) == "csr":
-        sorted_rows = True
-        bounds = np.asarray(A.indptr)[np.arange(len(angles) + 1) * p]
-    else:
-        a_of = coo.row // p
-        sorted_rows = bool(np.all(np.diff(coo.row) >= 0))
-        if sorted_rows:
-            bounds = np.searchsorted(a_of, np.arange(len(angles) + 1))
-    for a in range(len(angles)):
-        m = (slice(bounds[a], bounds[a + 1]) if sorted_rows
-             else a_of == a)
-        dr = bool(drive_rows[a])
-        line = i_img[m] if dr else j_img[m]
-        c = j_img[m] if dr else i_img[m]
-        packs[dr].append(_pack_angle(d_of[m], line, c, vals[m], n, p,
-                                     n_groups, n_pad=n_pad))
-        idx[dr].append(a)
-    return packs, idx, angles, p, n_pad
-
-
-def _stack_packs(group, n_pad, p, p_pad):
-    """Stack per-angle pack results into float32 (W, S, P) arrays at the
-    group-wide T = max T_a."""
-    T = max(T_a for _, T_a, _, _ in group)
-    W = np.zeros((len(group), T, n_pad, p_pad), np.float32)
-    for k, ((t, ii, dd, vv), _, _, _) in enumerate(group):
-        W[k, t, ii, dd] = vv
-    S = np.stack([s for _, _, s, _ in group])
-    P = np.stack([np.pad(pp, ((0, 0), (0, p_pad - p)), mode="edge")
-                  for _, _, _, pp in group])
-    return W, S, P
-
-
-def dequant_slab(W, sc):
-    """Stored weight stack -> float32; int8 stacks times their per-angle
-    scales. ``sc`` None passes float32/bfloat16 stacks through as float32."""
-    if sc is None:
-        return W.float()
-    return W.float() * sc[:, None, None, None]
-
+    @property
+    def T_cols(self):
+        return self.W_cols.shape[1] if self.W_cols.numel() else 0

@@ -5,7 +5,9 @@ angles are split into ``n_buckets`` buckets sorted by tap width ``T_a``, each
 stacked at its own ``T``. ``matvec`` (K2), ``rmatvec`` (K3) and the fused
 ``normal_matvec`` (K1) each launch their kernel once over all buckets
 (``banded_kernels``); K2 writes and K3 reads each angle's sinogram row
-through the buckets' angle ids. Storage classes: float32 (the exact
+through the buckets' angle ids. ``matmat``, ``rmatmat`` and
+``normal_matmat`` apply the columns as the frames of one launch, every
+frame on the one pack. Storage classes: float32 (the exact
 matrix), bfloat16, and int8 with per-angle absmax/127 scales. Applies
 compute in float32 on the dequantized weights whatever the input dtype, and
 return the input's dtype.
@@ -17,7 +19,7 @@ import torch
 
 from ..core.device import DEFAULT, resolve
 from ..core.linop import LinearOperator
-from .banded import _pack_groups, _stack_packs, dequant_slab
+from .pack import _pack_groups, _stack_packs, dequant_slab
 from .banded_kernels import (banded_adj_buckets, banded_ata_buckets,
                              banded_fwd_buckets)
 
@@ -45,6 +47,17 @@ def _to_torch(a, device):
         return torch.from_numpy(a.view(np.uint16)).view(
             torch.bfloat16).to(device)
     return torch.from_numpy(a).to(device)
+
+
+def drive_images(x, nx, n_pad):
+    """``(..., nx*nx)`` vectors -> the ``(..., n_pad, n_pad)`` float32
+    roll-space images and their contiguous transposes (for the buckets
+    driven along columns)."""
+    lead = tuple(x.shape[:-1])
+    X = torch.zeros(lead + (n_pad, n_pad), dtype=torch.float32,
+                    device=x.device)
+    X[..., :nx, :nx] = x.reshape(lead + (nx, nx))
+    return X, X.transpose(-1, -2).contiguous()
 
 
 class BucketedBandedProjector(LinearOperator):
@@ -80,12 +93,13 @@ class BucketedBandedProjector(LinearOperator):
             raise ValueError("the buckets' angle ids must hold each of "
                              "[0, n_angles) once: padded buckets (ap > 1) "
                              "are not supported")
-        # per bucket: (W, S, P, scales, is_cols) and its int32 angle ids
-        self._bks = tuple((*self._parts(st), isc)
-                          for st, isc in zip(self.stacks, self.is_cols))
-        self._aidx = tuple(torch.tensor(ai, dtype=torch.int32,
-                                        device=self.device)
-                           for ai in self.aidxs)
+        # per bucket that holds angles: (W, S, P, scales, is_cols) and its
+        # int32 angle ids
+        held = [k for k, ai in enumerate(self.aidxs) if ai]
+        self._bks = tuple((*self._parts(self.stacks[k]), self.is_cols[k])
+                          for k in held)
+        self._aidx = tuple(torch.tensor(self.aidxs[k], dtype=torch.int32,
+                                        device=self.device) for k in held)
 
     @classmethod
     def from_scipy_fan(cls, A, nx, views, angles=None, n_groups=64,
@@ -176,32 +190,50 @@ class BucketedBandedProjector(LinearOperator):
         M.sum_duplicates()
         return M
 
-    def _drive_images(self, x):
-        """(nx*nx,) vector -> the (n_pad, n_pad) float32 roll-space image
-        and its contiguous transpose (for the ``is_cols`` buckets)."""
-        n, npd = self.nx, self.n_pad
-        X = torch.zeros((npd, npd), dtype=torch.float32, device=x.device)
-        X[:n, :n] = x.reshape(n, n)
-        return X, X.T.contiguous()
+    def _fwd_frames(self, x):
+        """``(..., nx*nx)`` -> ``(..., m)`` float32: one K2 launch over all
+        buckets and frames."""
+        X, XT = drive_images(x, self.nx, self.n_pad)
+        y = self._fwd(X, XT, self._bks, self._aidx, self.det_count,
+                      self.n_groups)
+        return y.reshape(tuple(x.shape[:-1]) + (-1,))
+
+    def _adj_frames(self, y):
+        """``(..., m)`` -> ``(..., nx*nx)`` float32: one K3 launch."""
+        n, lead = self.nx, tuple(y.shape[:-1])
+        Y = y.reshape(lead + (-1, self.det_count)).to(torch.float32)
+        img = self._adj(Y.contiguous(), self._bks, self._aidx, self.n_groups)
+        return img[..., :n, :n].reshape(lead + (-1,))
+
+    def _ata_frames(self, x):
+        """``(..., nx*nx)`` -> ``(..., nx*nx)`` float32: one K1 launch."""
+        n = self.nx
+        X, XT = drive_images(x, n, self.n_pad)
+        img = self._ata(X, XT, self._bks, self.n_groups)
+        return img[..., :n, :n].reshape(x.shape)
 
     def matvec(self, x):
         """One K2 launch over all buckets, each angle's row written in
         place."""
-        X, XT = self._drive_images(x)
-        y = self._fwd(X, XT, self._bks, self._aidx, self.det_count,
-                      self.n_groups)
-        return y.reshape(-1).to(x.dtype)
+        return self._fwd_frames(x).to(x.dtype)
 
     def rmatvec(self, yv):
         """One K3 launch over all buckets, each reading its angles' rows."""
-        n = self.nx
-        Y = yv.reshape(-1, self.det_count).to(torch.float32).contiguous()
-        img = self._adj(Y, self._bks, self._aidx, self.n_groups)
-        return img[:n, :n].reshape(-1).to(yv.dtype)
+        return self._adj_frames(yv).to(yv.dtype)
 
     def normal_matvec(self, x):
         """Fused A^T A: one K1 launch over all buckets."""
-        n = self.nx
-        X, XT = self._drive_images(x)
-        img = self._ata(X, XT, self._bks, self.n_groups)
-        return img[:n, :n].reshape(-1).to(x.dtype)
+        return self._ata_frames(x).to(x.dtype)
+
+    def matmat(self, X):
+        """``(n, k)`` -> ``(m, k)``: the k columns as the frames of one K2
+        launch."""
+        return self._fwd_frames(X.T).T.to(X.dtype)
+
+    def rmatmat(self, Y):
+        """``(m, k)`` -> ``(n, k)``: one K3 launch over k frames."""
+        return self._adj_frames(Y.T).T.to(Y.dtype)
+
+    def normal_matmat(self, X):
+        """``(n, k)`` -> ``A^T A X``: one K1 launch over k frames."""
+        return self._ata_frames(X.T).T.to(X.dtype)

@@ -24,8 +24,19 @@ K2 writes each angle's row of the ``(n_angles, p)`` sinogram, K3 reads it
 there, and the buckets with ``cols`` drive the transposed image. The
 one-bucket wrappers are their ``nb = 1`` case.
 
+Frames: the same launch takes a stack of images ``(nf, n, n)`` (the
+sinograms ``(nf, rows, p)``). A bucket whose tensors carry a leading frame
+axis, ``W (nf, na, T, n, p_pad)``, ``S (nf, na, n)``, ``Pm (nf, na, G,
+p_pad)``, ``scales (nf, na)`` and angle ids ``(nf, na)``, applies frame
+f's stack to frame f (the dynamic operators' frame-varying geometry); a
+bucket without one applies its stack to every frame (a shared-geometry
+block diagonal, the columns of a ``matmat``). An angle id is a row of its
+frame's sinogram; one outside ``[0, rows)`` (a padded angle) writes and
+reads nothing.
+
 They replace ``_fwd_call``, ``_adj_call`` and ``_ata_call`` of
-``trips_tpu/sparse/pallas_banded_kernel.py``. Each wrapper sends a CPU
+``trips_tpu/sparse/pallas_banded_kernel.py``, and their ``jax.vmap`` over
+frames in ``trips_tpu/sparse/dynamic_banded.py``. Each wrapper sends a CPU
 tensor to its plain PyTorch version (``*_ref``, the twin of the JAX oracle
 ``apply_group_xla(..., wrap=True)``), launches the CUDA kernel
 (``csrc/banded.cu``) for a CUDA tensor, and raises for anything else.
@@ -39,7 +50,7 @@ import weakref
 
 import torch
 
-from .banded import dequant_slab
+from .pack import dequant_slab
 
 launch_counts = {"banded_fwd": 0, "banded_adj": 0, "banded_ata": 0}
 
@@ -108,32 +119,73 @@ def banded_ata_ref(X, W, S, Pm, n_groups, scales=None):
     return banded_adj_ref(y, W, S, Pm, n_groups, scales)
 
 
-def banded_fwd_buckets_ref(X, XT, buckets, aidx, p, n_groups):
-    y = torch.zeros((sum(len(a) for a in aidx), p), dtype=torch.float32,
+def _in_frame(bucket, ids, f):
+    """Frame ``f``'s ``(W, S, Pm, scales, cols)`` and angle ids: its own
+    stack where the bucket holds one per frame, else the shared one."""
+    W, S, Pm, sc, cols = bucket
+    if W.dim() == 4:
+        return bucket, ids
+    return ((W[f], S[f], Pm[f], None if sc is None else sc[f], cols),
+            None if ids is None else ids[f])
+
+
+def _frames(t, dims):
+    """(t as frames, whether it had a frame axis): an unframed tensor of
+    ``dims`` dimensions is one frame."""
+    return (t, True) if t.dim() == dims + 1 else (t[None], False)
+
+
+def banded_fwd_buckets_ref(X, XT, buckets, aidx, p, n_groups, rows=None):
+    rows = _rows(aidx) if rows is None else rows
+    X, framed = _frames(X, 2)
+    XT = None if XT is None else _frames(XT, 2)[0]
+    y = torch.zeros((X.shape[0], rows, p), dtype=torch.float32,
                     device=X.device)
-    for (W, S, Pm, scales, cols), ids in zip(buckets, aidx):
-        yg = banded_fwd_ref(XT if cols else X, W, S, Pm, n_groups, scales)
-        y.index_copy_(0, ids.long(), yg[:, :p])
-    return y
+    for f in range(X.shape[0]):
+        for bucket, ids in zip(buckets, aidx):
+            (W, S, Pm, sc, cols), ids = _in_frame(bucket, ids, f)
+            yg = banded_fwd_ref(XT[f] if cols else X[f], W, S, Pm, n_groups,
+                                sc)
+            keep = (ids >= 0) & (ids < rows)
+            y[f].index_copy_(0, ids[keep].long(), yg[keep, :p])
+    return y if framed else y[0]
 
 
 def banded_adj_buckets_ref(Y, buckets, aidx, n_groups):
-    n = buckets[0][0].shape[2]
-    out = torch.zeros((n, n), dtype=torch.float32, device=Y.device)
-    for (W, S, Pm, scales, cols), ids in zip(buckets, aidx):
-        Yg = torch.nn.functional.pad(Y.float().index_select(0, ids.long()),
-                                     (0, W.shape[3] - Y.shape[1]))
-        c = banded_adj_ref(Yg, W, S, Pm, n_groups, scales)
-        out += c.T if cols else c
-    return out
+    n = buckets[0][0].shape[-2]
+    Y, framed = _frames(Y, 2)
+    rows, p = Y.shape[1:]
+    out = torch.zeros((Y.shape[0], n, n), dtype=torch.float32,
+                      device=Y.device)
+    for f in range(Y.shape[0]):
+        for bucket, ids in zip(buckets, aidx):
+            (W, S, Pm, sc, cols), ids = _in_frame(bucket, ids, f)
+            keep = (ids >= 0) & (ids < rows)
+            Yg = torch.zeros((W.shape[0], W.shape[3]), dtype=torch.float32,
+                             device=Y.device)
+            Yg[keep, :p] = Y[f].float()[ids[keep].long()]
+            c = banded_adj_ref(Yg, W, S, Pm, n_groups, sc)
+            out[f] += c.T if cols else c
+    return out if framed else out[0]
 
 
 def banded_ata_buckets_ref(X, XT, buckets, n_groups):
-    out = torch.zeros_like(X, dtype=torch.float32)
-    for W, S, Pm, scales, cols in buckets:
-        c = banded_ata_ref(XT if cols else X, W, S, Pm, n_groups, scales)
-        out += c.T if cols else c
-    return out
+    X, framed = _frames(X, 2)
+    XT = None if XT is None else _frames(XT, 2)[0]
+    out = torch.zeros(X.shape, dtype=torch.float32, device=X.device)
+    for f in range(X.shape[0]):
+        for bucket in buckets:
+            (W, S, Pm, sc, cols), _ = _in_frame(bucket, None, f)
+            c = banded_ata_ref(XT[f] if cols else X[f], W, S, Pm, n_groups,
+                               sc)
+            out[f] += c.T if cols else c
+    return out if framed else out[0]
+
+
+def _rows(aidx):
+    """Sinogram rows when the buckets' angle ids of a frame are ``0 ..
+    rows - 1``, each once."""
+    return sum(a.shape[-1] for a in aidx)
 
 
 # ---- plans ------------------------------------------------------------------
@@ -198,8 +250,10 @@ def _check_tensor(t, dev, dtype, shape, name):
 def _check_buckets(inp, buckets, aidx, n_groups):
     """Refuse what the kernels do not take: ``inp`` must lie on a CUDA
     card, the buckets are ``(W, S, Pm, scales, cols)`` of one storage kind,
-    one ``n`` and one ``p_pad``, on its device; ``aidx`` (None for K1) their
-    int32 angle ids. -> (n, p_pad)."""
+    one ``n`` and one ``p_pad``, on its device, each with or without a
+    leading frame axis (the same frame count for all that have one);
+    ``aidx`` (None for K1) their int32 angle ids. -> (n, p_pad, the frames
+    the buckets with a frame axis hold, or None)."""
     dev = inp.device
     if dev.type != "cuda":
         raise ValueError(f"banded kernels take CPU or CUDA tensors, got "
@@ -209,11 +263,14 @@ def _check_buckets(inp, buckets, aidx, n_groups):
     if aidx is not None and len(aidx) != len(buckets):
         raise ValueError(f"{len(aidx)} angle id tensors for {len(buckets)} "
                          f"buckets")
+    frames = set()
     for k, (W, S, Pm, scales, _) in enumerate(buckets):
-        if W.dim() != 4:
-            raise ValueError(f"W must be (na, T, n, p_pad), got "
+        if W.dim() not in (4, 5):
+            raise ValueError(f"W must be ([nf,] na, T, n, p_pad), got "
                              f"{tuple(W.shape)}")
-        na, T, n, p_pad = W.shape
+        lead = tuple(W.shape[:-4])
+        frames.update(lead)
+        na, T, n, p_pad = W.shape[-4:]
         if W.dtype not in _KIND:
             raise TypeError(f"W dtype {W.dtype} is not float32/bfloat16/int8")
         if (scales is not None) != (W.dtype == torch.int8):
@@ -221,26 +278,32 @@ def _check_buckets(inp, buckets, aidx, n_groups):
                              "for them")
         if n_groups <= 0 or n % n_groups:
             raise ValueError(f"n_groups={n_groups} must divide n={n}")
+        if na < 1:
+            raise ValueError("a bucket holds no angle")
         # TMA reads W in rows of p_pad: 16-byte strides and base
         if p_pad * W.element_size() % 16 or W.data_ptr() % 16:
             raise ValueError(f"W rows must be 16-byte aligned (p_pad="
                              f"{p_pad})")
-        want = [(W, W.dtype, W.shape, "W"), (S, torch.int32, (na, n), "S"),
-                (Pm, torch.int32, (na, n_groups, p_pad), "Pm")]
+        want = [(W, W.dtype, W.shape, "W"),
+                (S, torch.int32, lead + (na, n), "S"),
+                (Pm, torch.int32, lead + (na, n_groups, p_pad), "Pm")]
         if scales is not None:
-            want.append((scales, torch.float32, (na,), "scales"))
+            want.append((scales, torch.float32, lead + (na,), "scales"))
         if aidx is not None:
-            want.append((aidx[k], torch.int32, (na,), "angle ids"))
+            want.append((aidx[k], torch.int32, lead + (na,), "angle ids"))
         for t, dt, shape, name in want:
             _check_tensor(t, dev, dt, shape, name)
     kinds = {b[0].dtype for b in buckets}
     if len(kinds) != 1:
         raise TypeError(f"one launch takes one storage kind, got {kinds}")
-    shapes = {tuple(b[0].shape[2:]) for b in buckets}
+    shapes = {tuple(b[0].shape[-2:]) for b in buckets}
     if len(shapes) != 1:
         raise ValueError(f"buckets of one launch share n and p_pad, got "
                          f"{shapes}")
-    return n, p_pad
+    if len(frames) > 1:
+        raise ValueError(f"buckets with a frame axis must share nf, got "
+                         f"{sorted(frames)}")
+    return n, p_pad, frames.pop() if frames else None
 
 
 # launch arguments of buckets already checked, by (kernel, id of the bucket
@@ -259,11 +322,11 @@ def clear_plans():
 
 def _prepare(name, inp, buckets, aidx, n_groups):
     """Check the buckets (``_check_buckets``) and make their launch
-    arguments: (n, p_pad, [(nb, ctypes arrays, plan)]), one entry per
-    launch of at most the library's ``trips_banded_max_buckets``. The
-    operator hands over the same buckets every apply: their check and
-    arguments are kept, without keeping the tensors alive, and reused while
-    the same tensors come again."""
+    arguments: (n, p_pad, the buckets' frame count or None, [(nb, ctypes
+    arrays, plan)]), one entry per launch of at most the library's
+    ``trips_banded_max_buckets``. The operator hands over the same buckets
+    every apply: their check and arguments are kept, without keeping the
+    tensors alive, and reused while the same tensors come again."""
     from .. import _build
 
     tensors = [t for b in buckets for t in b[:4] if t is not None]
@@ -274,25 +337,25 @@ def _prepare(name, inp, buckets, aidx, n_groups):
     if hit is not None and len(hit[0]) == len(tensors) and all(
             r() is t for r, t in zip(hit[0], tensors)):
         return hit[1]
-    n, p_pad = _check_buckets(inp, buckets, aidx, n_groups)
+    n, p_pad, nf = _check_buckets(inp, buckets, aidx, n_groups)
     most = _build.load().trips_banded_max_buckets()
     launches = []
     for k in range(0, len(buckets), most):
         part = buckets[k:k + most]
-        pl = launch_plan(name, tuple(b[0].shape[1] for b in part), n,
+        pl = launch_plan(name, tuple(b[0].shape[-3] for b in part), n,
                          part[0][0].element_size())
         cols = list(zip(*(
             (W.data_ptr(), S.data_ptr(), Pm.data_ptr(),
              sc.data_ptr() if sc is not None else None,
              aidx[k + j].data_ptr() if aidx is not None else None,
-             W.shape[0], W.shape[1], q["chunk_lines"], q["taps_per_box"],
-             int(c))
+             W.shape[-4], W.shape[-3], q["chunk_lines"], q["taps_per_box"],
+             int(c), W.shape[-4] if W.dim() == 5 else 0)
             for j, ((W, S, Pm, sc, c), q)
             in enumerate(zip(part, pl["buckets"])))))
         arrs = ([(ctypes.c_void_p * len(part))(*v) for v in cols[:5]]
                 + [(ctypes.c_int * len(part))(*v) for v in cols[5:]])
         launches.append((len(part), arrs, pl))
-    out = (n, p_pad, launches)
+    out = (n, p_pad, nf, launches)
     if len(_PREPARED) >= 64:
         del _PREPARED[next(iter(_PREPARED))]
     _PREPARED[key] = ([weakref.ref(t) for t in tensors], out)
@@ -300,9 +363,9 @@ def _prepare(name, inp, buckets, aidx, n_groups):
 
 
 def _launch(name, inp, inp_t, out, kind, launches, p, rows, n, p_pad,
-            n_groups):
-    """Launch kernel ``name`` with the arguments from ``_prepare``; raises
-    if a launch fails."""
+            n_groups, nf):
+    """Launch kernel ``name`` over ``nf`` frames with the arguments from
+    ``_prepare``; raises if a launch fails."""
     from .. import _build
 
     lib = _build.load()
@@ -313,7 +376,7 @@ def _launch(name, inp, inp_t, out, kind, launches, p, rows, n, p_pad,
                 _OP[name], _KIND[kind], nb,
                 *(ctypes.addressof(a) for a in arrs), inp.data_ptr(),
                 inp_t.data_ptr(), out.data_ptr(), p, rows, n, p_pad,
-                n_groups, pl["det"], pl["parts"], pl["lines"], stream)
+                n_groups, pl["det"], pl["parts"], pl["lines"], nf, stream)
             if err:
                 _PREPARED.clear()  # nothing kept from a refused launch
                 raise RuntimeError(f"{name} launch failed: CUDA error {err}")
@@ -321,68 +384,90 @@ def _launch(name, inp, inp_t, out, kind, launches, p, rows, n, p_pad,
     return out
 
 
-def _check_image(X, n, name):
-    _check_tensor(X, X.device, torch.float32, (n, n), name)
+def _frame_count(t, dims, nf_pack, name):
+    """Frames of ``t`` (a frame axis in front of ``dims`` dimensions, or
+    none: one frame); they must match the buckets' frame axis."""
+    nf = t.shape[0] if t.dim() == dims + 1 else 1
+    if t.dim() not in (dims, dims + 1) or (
+            nf_pack is not None and (t.dim() == dims or nf != nf_pack)):
+        raise ValueError(f"{name} of shape {tuple(t.shape)} does not match "
+                         f"the buckets' {nf_pack} frames")
+    return nf
 
 
-def banded_fwd_buckets(X, XT, buckets, aidx, p, n_groups):
+def _check_images(X, XT, buckets, n, nf_pack):
+    """-> (nf, the transposed images to pass: XT where a bucket drives
+    them, else X)."""
+    nf = _frame_count(X, 2, nf_pack, "X")
+    _check_tensor(X, X.device, torch.float32, X.shape[:-2] + (n, n), "X")
+    if not any(b[4] for b in buckets):
+        return nf, X
+    _check_tensor(XT, X.device, torch.float32, X.shape, "XT")
+    return nf, XT
+
+
+def banded_fwd_buckets(X, XT, buckets, aidx, p, n_groups, rows=None):
     """K2 over the buckets of one pack in one launch: ``buckets`` holds
     ``(W, S, Pm, scales, cols)``, ``aidx`` each bucket's int32 angle ids;
     a bucket with ``cols`` drives ``XT`` (the transposed image,
-    contiguous). -> the ``(rows, p)`` float32 sinogram, row ``aidx[k][a]``
-    holding detectors ``d < p`` of bucket k's angle a; the ids of all
-    buckets together must be ``0 .. rows - 1``, each once (the operator's
-    pack has them so), or rows are left unwritten."""
+    contiguous). ``X`` is one image ``(n, n)`` or frames ``(nf, n, n)``
+    (see the module's note on frames). -> the ``(rows, p)`` float32
+    sinogram, or ``(nf, rows, p)``: row ``aidx[k][a]`` holding detectors
+    ``d < p`` of bucket k's angle a. ``rows`` defaults to the angles of a
+    frame over all buckets; the ids of a frame must hold ``0 .. rows -
+    1``, each once (the operators' packs have them so), or rows are left
+    unwritten."""
     if X.device.type == "cpu":
-        return banded_fwd_buckets_ref(X, XT, buckets, aidx, p, n_groups)
-    n, p_pad, launches = _prepare("banded_fwd", X, buckets, aidx, n_groups)
-    _check_image(X, n, "X")
-    any_cols = any(b[4] for b in buckets)
-    if any_cols:
-        _check_image(XT, n, "XT")
+        return banded_fwd_buckets_ref(X, XT, buckets, aidx, p, n_groups,
+                                      rows)
+    n, p_pad, nf_pack, launches = _prepare("banded_fwd", X, buckets, aidx,
+                                           n_groups)
+    nf, XT = _check_images(X, XT, buckets, n, nf_pack)
     if not 1 <= p <= p_pad:
         raise ValueError(f"p={p} must lie in [1, p_pad={p_pad}]")
-    rows = sum(len(a) for a in aidx)
-    Y = torch.empty((rows, p), dtype=torch.float32, device=X.device)
-    return _launch("banded_fwd", X, XT if any_cols else X, Y,
-                   buckets[0][0].dtype, launches, p, rows, n, p_pad,
-                   n_groups)
+    rows = _rows(aidx) if rows is None else rows
+    Y = torch.empty(X.shape[:-2] + (rows, p), dtype=torch.float32,
+                    device=X.device)
+    return _launch("banded_fwd", X, XT, Y, buckets[0][0].dtype, launches, p,
+                   rows, n, p_pad, n_groups, nf)
 
 
 def banded_adj_buckets(Y, buckets, aidx, n_groups):
     """K3 over the buckets of one pack in one launch: ``Y (rows, p)``
-    float32 sinogram, ``buckets`` and ``aidx`` as for
-    ``banded_fwd_buckets``; bucket k's angle a reads row ``aidx[k][a]``
-    (zero beyond ``p``), a bucket with ``cols`` adds its image transposed.
-    -> ``(n, n)`` float32, the sum of ``banded_adj`` over the buckets."""
+    float32 sinogram, or frames ``(nf, rows, p)``, ``buckets`` and
+    ``aidx`` as for ``banded_fwd_buckets``; bucket k's angle a reads row
+    ``aidx[k][a]`` (zero beyond ``p``), a bucket with ``cols`` adds its
+    image transposed. -> ``(n, n)`` float32 (``(nf, n, n)``), the sum of
+    ``banded_adj`` over the buckets."""
     if Y.device.type == "cpu":
         return banded_adj_buckets_ref(Y, buckets, aidx, n_groups)
-    n, p_pad, launches = _prepare("banded_adj", Y, buckets, aidx, n_groups)
-    if Y.dim() != 2 or not 1 <= Y.shape[1] <= p_pad:
-        raise ValueError(f"Y must be (rows, p) with p <= p_pad={p_pad}, got "
-                         f"{tuple(Y.shape)}")
+    n, p_pad, nf_pack, launches = _prepare("banded_adj", Y, buckets, aidx,
+                                           n_groups)
+    nf = _frame_count(Y, 2, nf_pack, "Y")
+    if not 1 <= Y.shape[-1] <= p_pad:
+        raise ValueError(f"Y must be ([nf,] rows, p) with p <= p_pad="
+                         f"{p_pad}, got {tuple(Y.shape)}")
     _check_tensor(Y, Y.device, torch.float32, Y.shape, "Y")
-    out = torch.zeros((n, n), dtype=torch.float32, device=Y.device)
+    out = torch.zeros(Y.shape[:-2] + (n, n), dtype=torch.float32,
+                      device=Y.device)
     return _launch("banded_adj", Y, Y, out, buckets[0][0].dtype, launches,
-                   Y.shape[1], Y.shape[0], n, p_pad, n_groups)
+                   Y.shape[-1], Y.shape[-2], n, p_pad, n_groups, nf)
 
 
 def banded_ata_buckets(X, XT, buckets, n_groups):
     """K1 over the buckets of one pack in one launch: ``buckets`` holds
     ``(W, S, Pm, scales, cols)``; a bucket with ``cols`` drives ``XT`` (the
     transposed image, contiguous) and its image is transposed before the
-    sum. -> ``(n, n)`` float32, the sum of ``banded_ata`` over the
-    buckets."""
+    sum. ``X`` is ``(n, n)`` or frames ``(nf, n, n)``. -> float32 of
+    ``X``'s shape, the sum of ``banded_ata`` over the buckets."""
     if X.device.type == "cpu":
         return banded_ata_buckets_ref(X, XT, buckets, n_groups)
-    n, p_pad, launches = _prepare("banded_ata", X, buckets, None, n_groups)
-    _check_image(X, n, "X")
-    any_cols = any(b[4] for b in buckets)
-    if any_cols:
-        _check_image(XT, n, "XT")
-    out = torch.zeros((n, n), dtype=torch.float32, device=X.device)
-    return _launch("banded_ata", X, XT if any_cols else X, out,
-                   buckets[0][0].dtype, launches, 0, 0, n, p_pad, n_groups)
+    n, p_pad, nf_pack, launches = _prepare("banded_ata", X, buckets, None,
+                                           n_groups)
+    nf, XT = _check_images(X, XT, buckets, n, nf_pack)
+    out = torch.zeros(X.shape, dtype=torch.float32, device=X.device)
+    return _launch("banded_ata", X, XT, out, buckets[0][0].dtype, launches,
+                   0, 0, n, p_pad, n_groups, nf)
 
 
 def _ids(W, dev):
