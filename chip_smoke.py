@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's tomography solver paths once on one CUDA card.
+"""Drive the PyTorch port's solver paths once on one CUDA card.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one
 card; without one it exits non-zero before printing any result.
@@ -69,7 +69,25 @@ run by raising:
    float32 and int8 packs (minima within 0.01); launches against the counts
    the loops imply; K1-K3's device ms per apply against their bound, plain
    version and the block-diagonal CSR product; each solver's wall and
-   device busy time per iteration and idle share.
+   device busy time per iteration and idle share;
+8. the all-on-device solvers at full width: on tomo256x60 (30 iterations)
+   ``fused_gks`` with DP, GCV and the L-curve, ``fused_mmgks`` p=2 q=1 DP,
+   ``fused_hybrid_lsqr`` with GCV and with DP and reorthogonalization,
+   and ``lsqr`` (50 steps) damped by the square root of the GCV lambda;
+   on the dynamic problem of 7 (20 iterations) ``fused_mmgks`` with
+   isotropic TV and group sparsity, as the demo runs them (float32 data,
+   GCV), with lambda fixed, and with GCV on float64 data; each solve run
+   twice, each final relError held to 1e-3 of the JAX package's (the
+   demo's float32 GCV pair printed, not gated), K2/K3 launches against the
+   count each loop implies, each Brent/Newton loop's length and host
+   reads, the wall per iteration and the host syncs of one iteration by
+   source line (from ``torch.cuda.set_sync_debug_mode``); the GCV GKS
+   with the Brent chunk as taken and with 8, in turns; the float64-data
+   isoTV MMGKS and ``cgls_normal`` (K1, the bucketed float32 pack) killed
+   after one chunk and resumed from their files, held to a fixed limit
+   above the card's run-to-run spread; after 7's profiles, each solver's
+   device busy time per iteration and idle share beside the host-driven
+   solver's of 6/7.
 
 The line before the last holds ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -243,16 +261,17 @@ def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
-def device_ms(fn, reps, parts=None, sessions=3):
+def device_ms(fn, reps, parts=None, sessions=3, warm=True):
     """Device milliseconds per call of the kernels ``fn()`` launches, from
     ``torch.profiler`` over ``reps`` calls after one warm-up (host gaps
     between launches do not count): the median of ``sessions`` profiled
     sessions (a single session read up to 25% high now and then on an
     H100); ``parts``, if given, receives that session's milliseconds by
-    kernel name."""
+    kernel name. ``warm=False`` skips the warm-up call."""
     import torch
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     act = [torch.profiler.ProfilerActivity.CUDA]
     runs = []
@@ -652,7 +671,8 @@ def dynamic_path(dev, card, gen):
         print(f"[7] {name}: wall {walls[name]!r} ms/iter "
               f"({DYN_CGN_ITERS} iterations); card {card}")
     return dict(A=A, ops=ops, launches=launches, max_abs=max_abs,
-                solves=solves, walls=walls, iters=iters, nt=nt)
+                solves=solves, walls=walls, iters=iters, nt=nt, bv=bv,
+                x_true=x_true, dims=(nx, ny, nt))
 
 
 def dynamic_times(dyn, dev, card, gen):
@@ -735,6 +755,389 @@ def dynamic_times(dyn, dev, card, gen):
              "library": f"block-diagonal float32 CSR "
                         f"(torch.sparse_csr_tensor, {idx} indices)"}
             for k in names]
+
+
+# Phase 8: the all-on-device solvers at full width. The relError of each
+# final iterate of trips_tpu's fused solvers on the CPU on the same inputs
+# (``python3 demo_reference.py fused``: JAX 0.9.0, x64 off, the NumPy
+# matrix builder; the static problem over JAX's EllOperator, the dynamic
+# one over DynamicBandedOperator.from_frames(AA, 128, angles,
+# n_groups=8)). ``lsqr`` is damped by the square root of the last lambda
+# of the fused Hybrid LSQR with GCV (JAX's 5.646e-4 there, the port's own
+# here).
+JAX_FUSED_RELERR = {"fused GKS dp": 0.09926377213020238,
+                    "fused GKS gcv": 0.10012044903752557,
+                    "fused GKS l_curve": 0.10804490265535356,
+                    "fused MMGKS dp": 0.09589458943181105,
+                    "fused Hybrid LSQR gcv": 0.10907185704831984,
+                    "fused Hybrid LSQR dp reorth": 0.10890058436136543,
+                    "lsqr damped": 0.10750342137925675,
+                    "fused dynamic MMGKS isoTV": 0.22415887257636444,
+                    "fused dynamic MMGKS GS": 0.21321633937558807}
+# The dynamic demo's float32 solves with lambda fixed (regparam_mode
+# "scalar") at the last GCV lambda of JAX's float32 run above: the same
+# ``demo_reference.py fused`` run, as ``FUSED_LAM_PIN`` there.
+FUSED_LAM_PIN = {"isoTV": 0.003238760633394122,
+                 "GS": 0.10979907959699631}
+JAX_FUSED_RELERR.update({
+    "fused dynamic MMGKS isoTV lambda fixed": 0.23288773468270096,
+    "fused dynamic MMGKS GS lambda fixed": 0.23116693697135837})
+# Where the port's float32 formula departs from JAX's, the gate is the same
+# solve in float64 (``python3 demo_reference.py fused64``, x64 on), where
+# the two formulas agree: (1) DP: JAX's float32 GKS/MMGKS decide whether
+# DP is attainable from ||b||^2 - ||bproj||^2, a cancellation that is
+# rounding noise at this width (JAX's float32 turns DP on at iteration 22,
+# float64 at 19; relErrors 5.2e-4 and 1.2e-3 apart); the port sums the
+# explicit residual (``solvers/fused.py`` ``_out_norm2``). (2) GCV on the
+# square GKS/MMGKS pencils: JAX adds the SVD's rounding as a residual that
+# is 0 in exact arithmetic and, divided by lam^2, moves lam by decades in
+# float32 (tomo256x60's GKS: 1.6e-7 in float64, 0.036 in JAX's float32);
+# the port drops it (``_filtered_pencil``). The JAX float32 value is
+# printed beside. The dynamic GCV solves on float64 data (the applies cast
+# to the float32 pack and back) hold the GCV rule there to JAX's float64.
+JAX_FUSED_RELERR_F64 = {
+    "fused GKS dp": 0.09874777866492965,
+    "fused GKS gcv": 0.10035346173491452,
+    "fused MMGKS dp": 0.09466272906649792,
+    "fused Hybrid LSQR dp reorth": 0.10890057908925013,
+    "fused dynamic MMGKS isoTV float64 data": 0.21295509989159797,
+    "fused dynamic MMGKS GS float64 data": 0.21329556469074623}
+# The demo's own float32 GCV solves on the dynamic problem are printed, not
+# gated: where their lambda search stops follows the rounding (two runs on
+# the card, the CPU run, JAX's float32 run each stop elsewhere; PERF.md
+# section 7), so their relError does too. Their fixed-lambda runs above
+# hold the float32 path to JAX.
+FUSED_UNGATED = ("fused dynamic MMGKS isoTV", "fused dynamic MMGKS GS")
+FUSED_GATE = 1e-3
+FUSED_ITERS, FUSED_DYN_ITERS, LSQR_STEPS = 30, 20, 50
+# the kill/resume runs: chunks of 10 iterations, killed after the first
+FUSED_CHUNK = 10
+# A resumed run's distance from an uninterrupted one, ||dx|| / ||x|| and
+# for the MMGKS its lambda history's. The card's run-to-run spread (K3's
+# and K1's atomics) measured 2.9e-6 and 6.9e-6 (MMGKS) and 2.7-2.8e-6
+# (cgls_normal) in x, 6.0e-5 and 1.4e-4 in the lambdas (GCV's search moves
+# with the applies' rounding); a run one iteration short is 2.8e-3 and
+# 1.2e-3 off in x; a dropped lambda history would be 1 off (PERF.md, PR 9).
+RESUME_LIMIT = {"x": 1e-4, "lambdas": 1e-3}
+SYNC_ITER = 10  # the iteration whose host syncs are counted
+
+
+class Killed(Exception):
+    pass
+
+
+def count_syncs(fn):
+    """Counter of "file:line" -> host syncs of ``fn()``, from
+    ``torch.cuda.set_sync_debug_mode("warn")``."""
+    import collections
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    root = str(Path(__file__).resolve().parent) + os.sep
+    return collections.Counter(
+        f"{w.filename.replace(root, '')}:{w.lineno}" for w in caught
+        if "synchroniz" in str(w.message))
+
+
+def fused_solves(OP, bv, L, delta, dyn):
+    """{name: (solve() -> (x, lams), one() -> a call that runs iteration
+    SYNC_ITER, expected (K2, K3) launches or a function of the loop trace,
+    iterations, the truth)} of phase 8.
+
+    Launches: fused GKS and MMGKS as the host GKS and MMGKS ([6]): set-up
+    golub_kahan over DEMO_DIM steps (a K2 and a K3 each), ``A.matmat(V0)``
+    (one K2 on the banded operator; a K2 per column on the frame-varying
+    dynamic one) and for MMGKS ``A.rmatvec(b)``; then per iteration GKS one
+    K2 and one K3, MMGKS two K2 and one K3. The hybrids: one K2 and one K3
+    per Golub-Kahan step. ``lsqr``: one K3 at set-up, one K2 and one K3 per
+    enqueued step (the dropped ones too)."""
+    from trips_tpu_torch.operators import CenteredSpaceTimeDerivative
+    from trips_tpu_torch.solvers import fused as F
+
+    n, d = FUSED_ITERS, DEMO_DIM
+
+    def body_at(body, carry, start=0):
+        carry = F._run(body, carry, start, SYNC_ITER)
+        return lambda: body(SYNC_ITER, carry)
+
+    def gks(mode):
+        def one():
+            body = F._gks_body(OP, bv, L, mode, 1.0, delta, 1.01, d, d + n)
+            return body_at(body, F._gks_init(OP, bv, L, d, n))
+        return (lambda: F.fused_gks(OP, bv, L, projection_dim=d, n_iter=n,
+                                    regparam_mode=mode, delta=delta,
+                                    device=bv.device)[:2],
+                one, (d + 1 + n, d + n), n)
+
+    def mmgks(A, b, Lm, mode, n, d, weight_mode="holder", dims=None,
+              setup_k2=1, lam=1.0, profiled=True):
+        def one():
+            Lr = F._mmgks_regularizer(Lm, weight_mode, dims, b.device)
+            body = F._mmgks_body(A, b, Lr, mode, 2.0, 1.0, 0.1, lam, delta,
+                                 1.01, weight_mode, dims, d, d + n)
+            return body_at(body, F._mmgks_init(A, b, Lr, d, n))
+        return (lambda: F.fused_mmgks(
+            A, b, Lm, pnorm=2.0, qnorm=1.0, projection_dim=d, n_iter=n,
+            regparam=lam, regparam_mode=mode, delta=delta,
+            weight_mode=weight_mode, prob_dims=dims, device=b.device)[:2],
+            one if profiled else None,
+            (d + setup_k2 + 2 * n, d + 1 + n), n)
+
+    def hybrid(mode, reorth):
+        def one():
+            body, init, start = F._hybrid_lsqr_parts(OP, bv, n, mode, 1.0,
+                                                     delta, 1.01, reorth)
+            return body_at(body, init, start)
+        return (lambda: F.fused_hybrid_lsqr(
+            OP, bv, n_iter=n, regparam_mode=mode, delta=delta,
+            reorth=reorth, device=bv.device), one, (n, n), n)
+
+    out = {"fused GKS dp": gks("dp"), "fused GKS gcv": gks("gcv"),
+           "fused GKS l_curve": gks("l_curve"),
+           "fused MMGKS dp": mmgks(OP, bv, L, "dp", n, d),
+           "fused Hybrid LSQR gcv": hybrid("gcv", False),
+           "fused Hybrid LSQR dp reorth": hybrid("dp", True)}
+    # the dynamic demo's solves (float32 data, GCV; profiled, not gated),
+    # the same with lambda fixed, and with GCV on float64 data (the applies
+    # cast it to the float32 pack and back)
+    op, (nx, ny, nt) = dyn["ops"]["flat float32"], dyn["dims"]
+    Ltv = CenteredSpaceTimeDerivative(nx, ny, nt, device=bv.device)
+    for mode, Lm in (("isoTV", Ltv), ("GS", None)):
+        for suffix, b, rule in (("", dyn["bv"], "gcv"),
+                                (" lambda fixed", dyn["bv"], "scalar"),
+                                (" float64 data", dyn["bv"].double(), "gcv")):
+            out[f"fused dynamic MMGKS {mode}{suffix}"] = mmgks(
+                op, b, Lm, rule, FUSED_DYN_ITERS, 3, mode, dyn["dims"],
+                setup_k2=3, lam=FUSED_LAM_PIN[mode], profiled=not suffix)
+    return out, Ltv
+
+
+def fused_path(dev, card, OP, bv, L, delta, x_true, dyn):
+    """Phase 8 up to the gates: each all-on-device solver at full width,
+    its final relError against the JAX package's, its K1-K3 launches
+    against the count its loop implies, its search loops' lengths and host
+    reads, its wall per iteration (before any profiler session) and the
+    host syncs of one iteration by source line; the kill/resume of the
+    dynamic isoTV MMGKS and of ``cgls_normal`` against ``RESUME_LIMIT``.
+    -> what ``fused_times`` profiles."""
+    import tempfile
+
+    import torch
+
+    from trips_tpu_torch.core import loop
+    from trips_tpu_torch.krylov import cgls_normal, lsqr
+    from trips_tpu_torch.solvers import checkpointed as C
+    from trips_tpu_torch.sparse import banded_kernels as bk
+    from trips_tpu_torch.utils import save_state
+
+    lsqr_chunk = sys.modules["trips_tpu_torch.krylov.lsqr"].CHUNK
+    truth = {"static": np.asarray(x_true).reshape(-1),
+             "dynamic": np.asarray(dyn["x_true"]).reshape(-1)}
+
+    def relerr(x, ref):
+        x = x.double().cpu().numpy().reshape(-1)
+        return float(np.linalg.norm(x - ref) / np.linalg.norm(ref))
+
+    solves, Ltv = fused_solves(OP, bv, L, delta, dyn)
+    lam_gcv = []
+
+    def lsqr_solve():
+        damp = float(np.sqrt(lam_gcv[0]))
+        x, k = lsqr(OP, bv, LSQR_STEPS, damp=damp, device=dev)
+        check(k == LSQR_STEPS, f"lsqr stopped at {k}")
+        return x, torch.full((1,), lam_gcv[0])
+
+    def lsqr_launches(trace):
+        reads = sum(r for name, r, _ in trace if name == "lsqr")
+        return reads * lsqr_chunk, reads * lsqr_chunk + 1
+
+    solves["lsqr damped"] = (lsqr_solve, None, lsqr_launches, LSQR_STEPS)
+    walls, launches, searches, syncs, one_iter = {}, {}, {}, {}, {}
+    for name, (solve, one, expect, its) in solves.items():
+        ref_x = truth["dynamic" if "dynamic" in name else "static"]
+        bk.reset_launch_counts()
+        loop.TRACE = []
+        x, lams = solve()
+        torch.cuda.synchronize()
+        got, trace = dict(bk.launch_counts), loop.TRACE
+        loop.TRACE = None
+        want = expect(trace) if callable(expect) else expect
+        if name == "fused Hybrid LSQR gcv":
+            lam_gcv.append(float(lams[-1]))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        x2, lams2 = solve()  # the wall, and a second run on the same inputs
+        torch.cuda.synchronize()
+        walls[name] = (time.perf_counter() - t) / its * 1e3
+        launches[name] = got
+        check(all(bool(torch.isfinite(v).all()) for v in (x, lams, x2, lams2)),
+              f"{name} finite")
+        errs = [relerr(v, ref_x) for v in (x, x2)]
+        loops = {}
+        for loop_name, reads, steps in trace:
+            s = loops.setdefault(loop_name, [[], 0])
+            s[0].append(int(steps))
+            s[1] += reads
+        searches[name] = loops
+        ref = JAX_FUSED_RELERR_F64.get(name, JAX_FUSED_RELERR.get(name))
+        which = ("float64" if name in JAX_FUSED_RELERR_F64 else "float32")
+        f32 = JAX_FUSED_RELERR.get(name.removesuffix(" float64 data"))
+        gate = ("not gated" if name in FUSED_UNGATED
+                else f"gate {FUSED_GATE}")
+        print(f"[8] {name}: relError final {errs[0]!r}, a second run "
+              f"{errs[1]!r} (x {rel(x2, x)!r} apart) (JAX CPU {which} "
+              f"{ref!r}, float32 {f32!r}; {gate}), last lambda "
+              f"{float(lams[-1])!r}, second run {float(lams2[-1])!r}; "
+              f"launches {got} (expected K2 {want[0]}, K3 {want[1]}); wall "
+              f"{walls[name]!r} ms/iter (the second run, {its} iterations, "
+              "set-up included); "
+              + ("; ".join(f"{k}: {len(s)} loops, host reads {r}, steps "
+                           f"{sorted(s)}" for k, (s, r) in loops.items())
+                 or "no search loop") + f"; card {card}")
+        check((got["banded_fwd"], got["banded_adj"]) == tuple(want)
+              and got["banded_ata"] == 0, f"{name} launches {got} vs {want}")
+        if name not in FUSED_UNGATED:
+            check(max(abs(e - ref) for e in errs) <= FUSED_GATE,
+                  f"{name} final relErrors {errs!r}")
+        if name == "lsqr damped":  # over its steps
+            syncs[name] = {k: v / its for k, v in
+                           count_syncs(solve).items()}
+            one_iter[name] = (solve, walls[name] * its, its)
+        elif one is not None:  # iteration SYNC_ITER: syncs, then its wall
+            step = one()
+            syncs[name] = count_syncs(step)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            one_iter[name] = (step, (time.perf_counter() - t) * 1e3, 1)
+
+    # the Brent chunk: one host read per usual search, as taken, against a
+    # read every 8 steps (fewer dropped steps, more reads), in turns on
+    # iteration SYNC_ITER of the GCV GKS
+    regdev = sys.modules["trips_tpu_torch.regparam.device"]
+    taken, step = regdev.BRENT_CHUNK, one_iter["fused GKS gcv"][0]
+    chunk_walls = {}
+    try:
+        for chunk in (taken, 8, 8, taken) * 2:
+            regdev.BRENT_CHUNK = chunk
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            chunk_walls.setdefault(chunk, []).append(
+                (time.perf_counter() - t) * 1e3)
+        regdev.BRENT_CHUNK = 8
+        sites8 = count_syncs(step)
+    finally:
+        regdev.BRENT_CHUNK = taken
+    print(f"[8] fused GKS gcv, iteration {SYNC_ITER}, wall (ms) by Brent "
+          f"chunk in turns: {chunk_walls!r}; host syncs with a chunk of 8: "
+          f"{sum(sites8.values())} ({dict(sites8)}); card {card}")
+
+    # kill/resume against two uninterrupted runs, held to RESUME_LIMIT: the
+    # dynamic isoTV MMGKS with GCV on float64 data (K2, K3 over frames) and
+    # cgls_normal on the bucketed float32 pack (K1)
+    op, dims, bd = dyn["ops"]["flat float32"], dyn["dims"], dyn["bv"]
+    tmp = tempfile.mkdtemp()
+
+    def kill(path):
+        def cb(it, **state):
+            save_state(path, state)
+            raise Killed
+        return cb
+
+    def killed_and_resumed(fn, path):
+        try:
+            fn(callback=kill(path))
+        except Killed:
+            pass
+        else:
+            check(False, "the checkpointed run was not killed")
+        return fn(resume_state=path)
+
+    mkw = dict(pnorm=2.0, qnorm=1.0, projection_dim=3, regparam_mode="gcv",
+               weight_mode="isoTV", prob_dims=dims, chunk=FUSED_CHUNK)
+    cop = dyn["ops"]["bucketed float32"]
+    x0 = torch.zeros(cop.shape[1], dtype=torch.float32, device=dev)
+    cases = {
+        "fused_mmgks_checkpointed isoTV float64 data": (
+            lambda n=FUSED_DYN_ITERS, **k: C.fused_mmgks_checkpointed(
+                op, bd.double(), Ltv, n_iter=n, **mkw, device=dev, **k)[:2],
+            "K3"),
+        "cgls_normal_checkpointed bucketed float32": (
+            lambda n=DYN_CGN_ITERS, **k: C.cgls_normal_checkpointed(
+                cop, bd, x0, n, chunk=FUSED_CHUNK, device=dev, **k)[:1],
+            "K1")}
+    for name, (fn, atomics) in cases.items():
+        bk.reset_launch_counts()
+        full = [fn() for _ in range(2)]
+        resumed = killed_and_resumed(fn, os.path.join(tmp, "state.npz"))
+        got = dict(bk.launch_counts)
+        launches[name] = got
+        # what the limit is for: the same solve one iteration short
+        short = fn(n=(FUSED_DYN_ITERS if name.startswith("fused")
+                      else DYN_CGN_ITERS) - 1)[0]
+        spread = [rel(a, b) for a, b in zip(full[1], full[0])]
+        gap = [rel(a, b) for a, b in zip(resumed, full[0])]
+        errs = [relerr(r[0], truth["dynamic"]) for r in full + [resumed]]
+        limits = [RESUME_LIMIT[k] for k in ("x", "lambdas")[:len(gap)]]
+        print(f"[8] {name}, chunks of {FUSED_CHUNK}, killed after the first "
+              f"and resumed from its file: x (and lambdas) {gap!r} from an "
+              f"uninterrupted run (limits {limits}), two uninterrupted runs "
+              f"{spread!r} apart ({atomics}'s atomics); one iteration short "
+              f"{rel(short, full[0][0])!r}; relErrors {errs!r}; launches of "
+              f"the four runs {got}; card {card}")
+        check(all(r.shape == f.shape for r, f in zip(resumed, full[0])),
+              f"{name} resumed shapes")
+        check(all(g <= lim for g, lim in zip(gap, limits)),
+              f"{name} kill/resume {gap!r} vs the limits {limits}")
+    cgn = launches["cgls_normal_checkpointed bucketed float32"]
+    # per run one K3 (A^T b) and one K1 at set-up, one K1 per iteration;
+    # the killed run sets up and runs one chunk, the resumed one the rest
+    check(cgn == {"banded_fwd": 0, "banded_adj": 3,
+                  "banded_ata": 3 + 3 * DYN_CGN_ITERS},
+          f"cgls_normal_checkpointed launches {cgn}")
+    for name, sites in syncs.items():
+        which = ("the mean over its steps" if name == "lsqr damped"
+                 else f"iteration {SYNC_ITER}")
+        print(f"[8] {name}: {sum(sites.values())!r} host syncs per "
+              f"iteration ({which}), by line: "
+              + ", ".join(f"{k} {v!r}" for k, v in sorted(
+                  sites.items(), key=lambda kv: -kv[1])))
+    return dict(walls=walls, launches=launches, searches=searches,
+                syncs=syncs, one_iter=one_iter)
+
+
+def fused_times(fused, card, host_walls):
+    """Phase 8's profiles: the device busy time of iteration SYNC_ITER of
+    each solver (``lsqr``: of a whole solve, per step) against its wall
+    time in [8] (before any profiler session), the idle share, and the
+    host-driven solver's wall per iteration in [6]/[7] beside."""
+    for name, (step, wall, its) in fused["one_iter"].items():
+        parts = {}  # each ran in [8]: no warm-up
+        busy = device_ms(step, 1, parts, sessions=1, warm=False) / its
+        wall = wall / its
+        top = sorted(parts.items(), key=lambda kv: -kv[1])[:6]
+        host = host_walls.get(name)
+        print(f"[8] {name}, iteration {SYNC_ITER if its == 1 else 'mean'}: "
+              f"device busy {busy * 1e3!r} us, wall {wall * 1e3!r} us, "
+              f"idle share {1 - busy / wall!r}; the whole solve "
+              f"{fused['walls'][name] * 1e3!r} us/iter"
+              + (f" (host-driven {host[0]}: {host[1] * 1e3!r} us/iter)"
+                 if host else "")
+              + "; busy by kernel (us): "
+              + ", ".join(f"{k} {v / its * 1e3!r}" for k, v in top)
+              + f"; card {card}")
 
 
 def main():
@@ -1081,6 +1484,11 @@ def main():
 
     # ---- 7. dynamic CT: gates, launches, walls (before any profiler) ---
     dyn = dynamic_path(dev, card, gen)
+
+    # ---- 8. the all-on-device solvers: gates, launches, walls, syncs ---
+    fused = fused_path(dev, card, OP, bv, FirstDerivative2D(nx, ny,
+                                                            device=dev),
+                       delta, x_true, dyn)
 
     # ---- 4. times ------------------------------------------------------
     nnz = A.nnz
@@ -1446,6 +1854,25 @@ def main():
                     if kind == "bfloat16" or name == "gcontract_ata"]
     # ---- 7. dynamic CT: kernel times, solver profiles ------------------
     kernels += dynamic_times(dyn, dev, card, gen)
+    # ---- 8. the all-on-device solvers' profiles --------------------------
+    host = {"fused GKS dp": "GKS dp", "fused MMGKS dp": "MMGKS dp",
+            "fused Hybrid LSQR gcv": "Hybrid LSQR gcv",
+            "fused Hybrid LSQR dp reorth": "Hybrid LSQR dp"}
+    host_walls = {k: (v, demo_wall[v]) for k, v in host.items()}
+    for mode in ("isoTV", "GS"):
+        v = f"dynamic MMGKS {mode}"
+        host_walls[f"fused {v}"] = (v, dyn["walls"][v])
+    fused_times(fused, card, host_walls)
+    static_fused = {k: v for k, v in fused["launches"].items()
+                    if "dynamic" not in k and "checkpointed" not in k}
+    dynamic_fused = {k: v for k, v in fused["launches"].items()
+                     if k not in static_fused}
+    for entry in kernels:
+        byp = dynamic_fused if entry["name"].endswith("_frames") else (
+            static_fused if entry.get("storage") == "float32" else None)
+        if byp is not None:
+            entry["fused_launches"] = {k: v[entry["name"].removesuffix(
+                "_frames")] for k, v in byp.items()}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

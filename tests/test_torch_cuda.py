@@ -687,3 +687,140 @@ def test_csr_operator_matches_cpu(cuda):
         got = getattr(gpu, fn)(v.to(cuda))
         assert got.device.type == "cuda"
         assert _rel(got.cpu(), getattr(cpu, fn)(v)) <= 1e-6, fn
+
+
+# ---- the all-on-device solvers ----------------------------------------------
+FUSED = {
+    "fused_gks dp": (lambda F, op, b, L, delta, dev: F.fused_gks(
+        op, b, L, projection_dim=3, n_iter=10, regparam_mode="dp",
+        delta=delta, device=dev), (14, 13)),
+    "fused_gks gcv": (lambda F, op, b, L, delta, dev: F.fused_gks(
+        op, b, L, projection_dim=3, n_iter=10, regparam_mode="gcv",
+        device=dev), (14, 13)),
+    "fused_gks l_curve": (lambda F, op, b, L, delta, dev: F.fused_gks(
+        op, b, L, projection_dim=3, n_iter=10, regparam_mode="l_curve",
+        device=dev), (14, 13)),
+    "fused_mmgks dp": (lambda F, op, b, L, delta, dev: F.fused_mmgks(
+        op, b, L, pnorm=2.0, qnorm=1.0, projection_dim=3, n_iter=10,
+        regparam_mode="dp", delta=delta, device=dev), (24, 14)),
+    "fused_hybrid_lsqr gcv": (lambda F, op, b, L, delta, dev:
+                              F.fused_hybrid_lsqr(op, b, n_iter=10,
+                                                  device=dev), (10, 10)),
+    "fused_hybrid_lsqr dp reorth": (
+        lambda F, op, b, L, delta, dev: F.fused_hybrid_lsqr(
+            op, b, n_iter=10, regparam_mode="dp", delta=delta, reorth=True,
+            device=dev), (10, 10)),
+}
+
+
+@pytest.mark.parametrize("name", list(FUSED))
+def test_fused_solvers_match_cpu(cuda, demo64, name):
+    """The all-on-device solvers at nx = 64 on the card (K2 and K3 as often
+    as the loop implies, lam chosen on the card) against the same solve on
+    the CPU: float32 sums in another order, so the final relError within
+    1e-3; lam and x finite, the lam history on the card."""
+    from trips_tpu_torch.operators import FirstDerivative2D
+    from trips_tpu_torch.solvers import fused as F
+
+    d = demo64
+    solve, expect = FUSED[name]
+    err = {}
+    for dev in ("cuda", "cpu"):
+        L = FirstDerivative2D(d["nx"], d["nx"], device=dev)
+        bk.reset_launch_counts()
+        x, lams = solve(F, d["ops"][dev], d["b"].to(dev), L, d["delta"],
+                        dev)[:2]
+        assert x.device.type == lams.device.type == dev
+        assert torch.isfinite(x).all() and torch.isfinite(lams).all()
+        if dev == "cuda":
+            launches = dict(bk.launch_counts)
+            assert (launches["banded_fwd"], launches["banded_adj"]) == \
+                expect and launches["banded_ata"] == 0, launches
+        err[dev] = _rel(x.cpu(), torch.from_numpy(d["x_true"].reshape(-1)))
+    assert abs(err["cuda"] - err["cpu"]) <= 1e-3, err
+
+
+def test_device_searches_match_cpu(cuda):
+    """Brent (GCV, L-curve) and the DP Newton on the card in float64 give
+    the CPU's lam (the same steps; the K x K factorizations in another
+    order: 1e-6)."""
+    from trips_tpu_torch.regparam import device as td
+
+    rng = np.random.default_rng(0)
+    k = 10
+    R_A = np.triu(rng.standard_normal((k, k))) + np.diag(np.logspace(0, -4,
+                                                                     k))
+    R_L, bp = np.eye(k), rng.standard_normal(k)
+    B = np.eye(k + 1)[:, :k] * 0.5 + np.eye(k + 1, k, -1) * 0.3
+    bb = rng.standard_normal(k + 1)
+    for fn, args in ((td.gcv_lambda, (R_A, R_L, bp)),
+                     (td.lcurve_lambda, (R_A, R_L, bp)),
+                     (td.dp_lambda, (B, bb, 0.2 * np.linalg.norm(bb)))):
+        got = fn(*args, device=cuda)
+        assert got.device.type == "cuda"
+        ref = fn(*args, device="cpu")
+        assert abs(float(got) - float(ref)) <= 1e-6 * abs(float(ref)), fn
+
+
+def test_lsqr_matches_cpu(cuda, demo64):
+    """Damped LSQR on the card (one K2 and one K3 per enqueued step, one K3
+    at set-up) against the CPU: float32, so the final relError within
+    1e-3; 30 steps, the stopping test never fires."""
+    from trips_tpu_torch.krylov import lsqr
+
+    d = demo64
+    err = {}
+    for dev in ("cuda", "cpu"):
+        bk.reset_launch_counts()
+        x, k = lsqr(d["ops"][dev], d["b"].to(dev), 30, damp=0.05,
+                    device=dev)
+        assert k == 30 and x.device.type == dev
+        if dev == "cuda":
+            launches = dict(bk.launch_counts)
+            assert launches == {"banded_fwd": 32, "banded_adj": 33,
+                                "banded_ata": 0}, launches
+        err[dev] = _rel(x.cpu(), torch.from_numpy(d["x_true"].reshape(-1)))
+    assert abs(err["cuda"] - err["cpu"]) <= 1e-3, err
+
+
+def test_fused_dynamic_checkpoint_on_card(cuda, dynamic32, tmp_path):
+    """The dynamic isoTV MMGKS (GCV on float64 data, where its search is
+    stable) in chunks on the card, killed after the first chunk and
+    resumed from its file: within 1e-4 of the uninterrupted iterate and
+    1e-3 of its lambda history (K3 adds with atomics: ``chip_smoke.py``'s
+    ``RESUME_LIMIT``), bitwise on the CPU, and within 1e-3 of the CPU's
+    relError."""
+    from trips_tpu_torch.operators import CenteredSpaceTimeDerivative
+    from trips_tpu_torch.solvers.checkpointed import fused_mmgks_checkpointed
+    from trips_tpu_torch.utils import save_state
+
+    A, b, AA, B, nx, ny, nt, delta, x_true, al = dynamic32
+
+    class Killed(Exception):
+        pass
+
+    def kill(it, **state):
+        save_state(str(tmp_path / "s.npz"), state)
+        raise Killed
+
+    xs = {}
+    for dev in ("cuda", "cpu"):
+        op = _dyn(dynamic32, "flat", None, dev)
+        kw = dict(pnorm=2.0, qnorm=1.0, projection_dim=3, n_iter=6,
+                  regparam_mode="gcv", weight_mode="isoTV",
+                  prob_dims=(nx, ny, nt), chunk=3, device=dev)
+        L = CenteredSpaceTimeDerivative(nx, ny, nt, device=dev)
+        bt = torch.tensor(b, dtype=torch.float64, device=dev)
+        xs[dev] = [fused_mmgks_checkpointed(op, bt, L, **kw)[:2]]
+        with pytest.raises(Killed):
+            fused_mmgks_checkpointed(op, bt, L, callback=kill, **kw)
+        xs[dev].append(fused_mmgks_checkpointed(
+            op, bt, L, resume_state=str(tmp_path / "s.npz"), **kw)[:2])
+    (x, lams), (xr, lamsr) = xs["cuda"]
+    assert lamsr.shape == lams.shape
+    assert _rel(xr, x) <= 1e-4 and _rel(lamsr, lams) <= 1e-3
+    (x, lams), (xr, lamsr) = xs["cpu"]
+    assert torch.equal(xr, x) and torch.equal(lamsr, lams)
+    xt = torch.from_numpy(x_true.reshape(-1))
+    errs = [_rel(x[0][0].cpu(), xt) for x in xs.values()]
+    assert abs(errs[0] - errs[1]) <= 1e-3, errs

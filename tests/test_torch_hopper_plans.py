@@ -18,7 +18,9 @@ entry points' device default, on the CPU.
   is refused; the staged tile, emulated in NumPy, computes the plain
   versions' functions.
 - Every public entry point defaults to ``device="cuda"`` and, with no card,
-  raises instead of running on the CPU.
+  raises instead of running on the CPU: the operators and problems, the
+  fused, info and checkpointed solvers, ``lsqr`` and the device parameter
+  searches.
 """
 import inspect
 
@@ -38,7 +40,10 @@ from trips_tpu_torch.operators.shear_kernels import (SMEM_BYTES as
 from trips_tpu_torch.problems import (Tomography, device_sparse_operator,
                                       fan_beam_matrix)
 from trips_tpu_torch import sparse
-from trips_tpu_torch.core import aslinearoperator
+from trips_tpu_torch.core import DenseOperator, aslinearoperator
+from trips_tpu_torch.krylov import lsqr
+from trips_tpu_torch.regparam import device as regdev
+from trips_tpu_torch.solvers import checkpointed, fused, fused_info
 from trips_tpu_torch.sparse import BucketedBandedProjector
 from trips_tpu_torch.sparse.banded_kernels import (SMEM_BYTES, launch_plan,
                                                    tile_plan)
@@ -214,7 +219,48 @@ def _entry_points():
         "CsrOperator.from_scipy": (sparse.CsrOperator.from_scipy,
                                    lambda: sparse.CsrOperator.from_scipy(A)),
         "aslinearoperator": (aslinearoperator, lambda: aslinearoperator(A)),
+        **_solver_entry_points(),
     }
+
+
+def _solver_entry_points():
+    """The fused, info and checkpointed solvers, ``lsqr`` and the device
+    parameter searches, each called with CPU inputs and no device."""
+    D = DenseOperator(torch.eye(4, dtype=torch.float64))
+    b, R = np.ones(4), np.eye(4)
+    calls = {
+        "lsqr": (lsqr, lambda: lsqr(D, b, 3)),
+        "fminbound": (regdev.fminbound,
+                      lambda: regdev.fminbound(lambda x: x * x, 0.0, 1.0)),
+        "gcv_lambda": (regdev.gcv_lambda,
+                       lambda: regdev.gcv_lambda(R, R, b)),
+        "lcurve_lambda": (regdev.lcurve_lambda,
+                          lambda: regdev.lcurve_lambda(R, R, b)),
+        "dp_lambda": (regdev.dp_lambda, lambda: regdev.dp_lambda(R, b, 0.1)),
+        "gcv_tsvd_k": (regdev.gcv_tsvd_k, lambda: regdev.gcv_tsvd_k(b, 3)),
+        "gcv_tgsvd_k": (regdev.gcv_tgsvd_k,
+                        lambda: regdev.gcv_tgsvd_k(b, 3, 4)),
+        "dp_tsvd_k": (regdev.dp_tsvd_k, lambda: regdev.dp_tsvd_k(b, 3, 0.1)),
+        "dp_tgsvd_k": (regdev.dp_tgsvd_k,
+                       lambda: regdev.dp_tgsvd_k(b, 3, 0.1)),
+        "cgls_normal_checkpointed": (
+            checkpointed.cgls_normal_checkpointed,
+            lambda: checkpointed.cgls_normal_checkpointed(D, b, b, 3)),
+    }
+    for mod, names in ((fused, ("fused_gks", "fused_mmgks")),
+                       (fused_info, ("fused_gks_info", "fused_mmgks_info")),
+                       (checkpointed, ("fused_gks_checkpointed",
+                                       "fused_mmgks_checkpointed"))):
+        for name in names:
+            fn = getattr(mod, name)
+            calls[name] = (fn, (lambda f: lambda: f(D, b, D, n_iter=2))(fn))
+    for mod, names in ((fused, ("fused_hybrid_lsqr", "fused_hybrid_gmres")),
+                       (fused_info, ("fused_hybrid_lsqr_info",
+                                     "fused_hybrid_gmres_info"))):
+        for name in names:
+            fn = getattr(mod, name)
+            calls[name] = (fn, (lambda f: lambda: f(D, b, n_iter=2))(fn))
+    return calls
 
 
 @pytest.mark.parametrize("name", list(_entry_points()))

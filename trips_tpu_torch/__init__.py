@@ -6,10 +6,11 @@ the matrix-free projectors (the shear-rotate fan projector with
 hand-written CUDA kernels, the on-the-fly and shear-stack projectors), and
 the regularized solvers of the tomography demo (Golub-Kahan and Arnoldi,
 the derivative and weight operators, GCV/DP/L-curve, GKS, MMGKS, the hybrid
-and projection solvers), and dynamic CT (the flat, dynamic and CSR
-operators over the same kernels, the dynamic problems and loaders). The JAX
-package ``trips_tpu`` is the reference
-each part is tested against.
+and projection solvers), dynamic CT (the flat, dynamic and CSR operators
+over the same kernels, the dynamic problems and loaders), and the
+all-on-device solvers (fused GKS, MMGKS and hybrids with lam chosen on the
+device, LSQR, checkpointed runs). The JAX package ``trips_tpu`` is the
+reference each part is tested against.
 """
 import torch
 

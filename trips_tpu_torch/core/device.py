@@ -19,3 +19,11 @@ def resolve(device) -> torch.device:
             f"device {str(dev)!r} asked for (the default), but no CUDA card "
             f"is available: pass device='cpu' to run on the CPU")
     return dev
+
+
+def check_operators(dev, *ops):
+    """Raise unless every operator given (None skipped) lives on ``dev``'s
+    device type: a solve on ``dev`` does not move them."""
+    for op in ops:
+        if op is not None and torch.device(op.device).type != dev.type:
+            raise ValueError(f"operator on {op.device}, solve asked on {dev}")

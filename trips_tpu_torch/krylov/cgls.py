@@ -4,15 +4,15 @@ Counterpart of ``trips_tpu/krylov/cgls.py`` with the same recurrences,
 stopping rules and ``(x, k)`` returns. The JAX loops run on the device in
 one ``lax.while_loop``; here each iteration is enqueued from Python.
 ``cgls`` and ``cgls_normal`` run in chunks of ``CHUNK`` steps and read the
-stopping test back once per chunk (one host sync): the steps of a chunk
-are enqueued without a test, each step's state is kept, and one read
-gives the first step at which the rule fired; the loop returns that
-step's state. So the iterates and ``k`` are those of a loop that tests the
-rule every step (the same tensors, no rounding changed); the price is at
-most ``CHUNK - 1`` wasted steps (their applies) after the rule fires. The
-fixed-length variants never sync inside the loop, and ``cgls_history``
-freezes the state with ``torch.where`` once the rule fires, as the JAX
-scan does.
+stopping test back once per chunk (one host sync, ``core.loop.run``): the
+steps of a chunk are enqueued without a test, each step's state is kept,
+and one read gives the first step at which the rule fired; the loop
+returns that step's state. So the iterates and ``k`` are those of a loop
+that tests the rule every step (the same tensors, no rounding changed);
+the price is at most ``CHUNK - 1`` wasted steps (their applies) after the
+rule fires. The fixed-length variants never sync inside the loop, and
+``cgls_history`` freezes the state with ``torch.where`` once the rule
+fires, as the JAX scan does.
 """
 from __future__ import annotations
 
@@ -20,11 +20,17 @@ from dataclasses import dataclass, replace
 
 import torch
 
+from ..core.loop import run
+
 CHUNK = 8  # steps between two host reads of the stopping test
 
 
 def _eps(x):
     return torch.finfo(x.dtype).eps
+
+
+def _done(s):
+    return s.done
 
 
 @dataclass
@@ -66,29 +72,10 @@ def _step(A, tol, s: CGLSState) -> CGLSState:
                      k=s.k + 1, done=done)
 
 
-def _run(step, s, n_steps):
-    """At most ``n_steps`` of ``step`` from ``s``, stopping at the first
-    state whose ``done`` is set (``s`` itself if it is): chunks of
-    ``CHUNK`` steps, every state of a chunk kept, and one host read per
-    chunk of the first one done."""
-    while n_steps > 0:
-        states = [s]
-        for _ in range(min(CHUNK, n_steps)):
-            states.append(step(states[-1]))
-        n_steps -= len(states) - 1
-        done = torch.stack([t.done for t in states])
-        # the first done state's index, or len(states) if none is
-        first = int(torch.where(done.any(), done.byte().argmax(),
-                                len(states)))
-        if first < len(states):
-            return states[first]
-        s = states[-1]
-    return s
-
-
 def cgls(A, b, x0, max_iter: int, tol):
     """CGLS; returns (x, k_iterations)."""
-    s = _run(lambda s: _step(A, tol, s), _init(A, b, x0), max_iter)
+    s = run(lambda s: _step(A, tol, s), _init(A, b, x0), _done, CHUNK,
+            max_iter, "cgls")
     return s.x, s.k
 
 
@@ -150,7 +137,8 @@ def _cgn_chunk(A, tol, s: CGNState, k_end: int) -> CGNState:
     """Run the ``cgls_normal`` recurrence up to iteration ``k_end``: the same
     loop as ``cgls_normal``, so stopping at ``k_end`` and resuming does not
     change any rounding."""
-    return _run(lambda s: _cgn_step(A, tol, s), s, k_end - s.k)
+    return run(lambda s: _cgn_step(A, tol, s), s, _done, CHUNK, k_end - s.k,
+               "cgls_normal")
 
 
 def cgls_normal(A, b, x0, max_iter: int, tol=0.0):
