@@ -87,7 +87,25 @@ run by raising:
    after one chunk and resumed from their files, held to a fixed limit
    above the card's run-to-run spread; after 7's profiles, each solver's
    device busy time per iteration and idle share beside the host-driven
-   solver's of 6/7.
+   solver's of 6/7;
+9. deblurring (no K1-K6 on this path: the blurs are cuDNN ``conv2d`` and
+   cuBLAS products, as the JAX package's are XLA's): ``Blur1D`` (n = 200),
+   ``Blur2D`` (128x128, the 9x9 PSF and an even 4x6 one) and
+   ``FrameletOperator(128, 128, 2)``, float32 against float64 on the card
+   and float64 against scipy on the host, the reversed/flipped-PSF
+   ``rmatvec``, the framelet's tight frame and adjointness, one ``conv2d``
+   per column apply, device us per apply against the bound; then the 1D
+   demo (n = 200: TSVD, TGSVD, Tikhonov, Hybrid GMRES, Hybrid LSQR, GKS,
+   all DP), the 2D demo with ``--large`` (128x128, 9x9 PSF: Arnoldi-
+   Tikhonov DP, Hybrid GMRES, Hybrid LSQR, GKS, MMGKS with the derivative
+   and with the framelet, GCV), ``demos/demo_fused_tpu.py --config
+   deblur1d`` (fused GKS with GCV, DP and the L-curve, fused MMGKS and
+   Hybrid LSQR with GCV) and ``fused_hybrid_gmres`` (GCV, DP, DP with
+   reorthogonalization) on the 2D problem, in float32, each run twice and
+   its final relError held to 1e-3 of the JAX package's (float64 where the
+   port's float32 formula departs and for fused Hybrid GMRES DP without
+   reorthogonalization), TSVD's and TGSVD's k equal to JAX's; each solver's wall and device busy time
+   per iteration and idle share; [9]'s seconds.
 
 The line before the last holds ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1140,6 +1158,401 @@ def fused_times(fused, card, host_walls):
               + f"; card {card}")
 
 
+# Phase 9: deblurring. The final relError of each solve and its lambda (k
+# for TSVD/TGSVD) from trips_tpu on the CPU on the same inputs (``python3
+# demo_reference.py deblur``: JAX 0.9.0, x64 off, float32, as the demos run):
+# the 1D demo (demos/demo_1d_deblurring.py, n = 200), the 2D demo with
+# --large (demos/demo_2d_deblurring.py: 128x128, 9x9 PSF of spread (3, 3),
+# 1% noise), demos/demo_fused_tpu.py --config deblur1d, and
+# fused_hybrid_gmres on the 2D inputs. The same run solved again on b
+# perturbed by one float32 unit: every final relError moved by at most
+# 2.7e-4 (1D GKS dp; 2D GKS gcv 2.0e-4, the rest under 1e-4).
+JAX_DEBLUR = {
+    "1D TSVD dp": (0.02009361299742136, 10),
+    "1D TGSVD dp": (0.02158552110260634, 8),
+    "1D Tikhonov dp": (0.026406024557281627, 0.00757343463000616),
+    "1D Hybrid GMRES dp": (0.0280225852528115, 0.014763195530528381),
+    "1D Hybrid LSQR dp": (0.028009884393942166, 0.01495456993071462),
+    "1D GKS dp": (0.032951894158374, 6.920111308628002),
+    "2D Arnoldi-Tikhonov dp": (0.23538614945619546, 0.0),
+    "2D Hybrid GMRES gcv": (0.17869259320625058, 1.0006149509305106e-09),
+    "2D Hybrid LSQR gcv": (0.18204715128369964, 1.340666875926213e-07),
+    "2D GKS gcv": (0.29352282708106026, 0.0458646847321257),
+    "2D MMGKS derivative": (0.10051751146262866, 5.770718407811954e-06),
+    "2D MMGKS framelet": (0.2447749805402716, 0.0014760074938362415),
+    "fused GKS gcv": (0.02438090327812814, 0.195791557431221),
+    "fused GKS dp": (0.033391713771796006, 7.204313278198242),
+    "fused GKS l_curve": (0.02273225973608446, 0.40442126989364624),
+    "fused MMGKS gcv": (0.06398963097327078, 8.664673600833339e-08),
+    "fused Hybrid LSQR gcv": (0.027720378021863532, 0.00015439138223882765),
+    "fused Hybrid GMRES gcv": (0.1786938008298547, 1.0284332274679286e-09),
+    "fused Hybrid GMRES dp": (0.1891553497506163, 0.001293584005907178),
+    "fused Hybrid GMRES dp reorth": (0.18603758610651136,
+                                     0.001137923332862556)}
+# The same solves in float64 (``python3 demo_reference.py deblur64``).
+JAX_DEBLUR_F64 = {
+    "1D TSVD dp": (0.02009361483514318, 10),
+    "1D TGSVD dp": (0.021585528324448097, 8),
+    "1D Tikhonov dp": (0.02640587057327337, 0.007573434874779871),
+    "1D Hybrid GMRES dp": (0.028022580806398828, 0.014763208214592148),
+    "1D Hybrid LSQR dp": (0.028009931571351933, 0.01495457443184726),
+    "1D GKS dp": (0.03305426610211628, 6.947890989435142),
+    "2D Arnoldi-Tikhonov dp": (0.23538664396694822, 0.0),
+    "2D Hybrid GMRES gcv": (0.17869161124117605, 1.0006149509305106e-09),
+    "2D Hybrid LSQR gcv": (0.18204716035195437, 1.3406341047994785e-07),
+    "2D GKS gcv": (0.29309505402083696, 0.04428235033446651),
+    "2D MMGKS derivative": (0.10051739410696829, 5.773403058251213e-06),
+    "2D MMGKS framelet": (0.24477489224898893, 0.0014760069038536557),
+    "fused GKS gcv": (0.02413897961447105, 0.21890380720875488),
+    "fused GKS dp": (0.033375952099002654, 7.19900077631172),
+    "fused GKS l_curve": (0.022732235866152, 0.40440578466091476),
+    "fused MMGKS gcv": (0.06404665851725166, 1.0005676191838169e-09),
+    "fused Hybrid LSQR gcv": (0.02772029215128685, 0.00015448119673151662),
+    "fused Hybrid GMRES gcv": (0.17869161124117794, 1.0006149509305106e-09),
+    "fused Hybrid GMRES dp": (0.18603780116982013, 0.0011379321543933101),
+    "fused Hybrid GMRES dp reorth": (0.18603780117493912,
+                                     0.0011379321546462831)}
+# Float32 solves held to JAX's float64 run, JAX's float32 value printed
+# beside. (1) fused GKS with DP: the port's fused solvers depart from JAX's
+# float32 formulas in DP's energy and in GCV on a square pencil (section
+# 8's comment; ROADMAP Queue 3 item 11, a deliberate departure). (2)
+# fused_hybrid_gmres with DP and no reorthogonalization: its float32
+# Arnoldi basis loses orthogonality and the DP test runs on it as
+# computed, so each float32 implementation ends elsewhere (JAX 0.18916,
+# the port on the CPU 0.18179, on the card 0.18605), and one float32 unit
+# on b moves none of them by 1e-5: there is no float32 answer to hold it
+# to. With reorthogonalization all three land on float64's 0.18604
+# (``demo_reference.py deblur_probe``), and that solve is held to JAX's
+# float32 run (ROADMAP Queue 3 item 14).
+DEBLUR_F64_GATED = ("fused GKS dp", "fused Hybrid GMRES dp")
+# ||b|| of the 1D and 2D inputs (float64, host), to prove they are the same
+B_DEBLUR_NORMS = (13.582971804957891, 46.817882130486936)
+DEBLUR_GATE, DEBLUR_ITERS, DEBLUR_DIM = 1e-3, 30, 3
+FRAMELET_ITERS, AT_ITERS, FUSED1D_ITERS, FUSED1D_HYB_ITERS = 15, 8, 15, 20
+# float32 applies against float64 on the card, and float64 against scipy
+# on the host (the reference's own calls): relative norms
+BLUR_F32, BLUR_F64 = 1e-6, 1e-12
+DEBLUR_COLS = 8  # columns of the timed and profiled matmat
+
+
+def deblur_problems(dev, dtype):
+    """The inputs of ``demo_reference.py deblur`` through the port's
+    problems on ``dev``: (1D dict, 2D dict), operators in ``dtype``."""
+    import torch
+
+    from trips_tpu_torch.operators import first_derivative_matrix
+    from trips_tpu_torch.problems import Deblurring1D, Deblurring2D
+
+    np.random.seed(0)
+    n = 200
+    prob = Deblurring1D(device=dev, dtype=dtype)
+    A = prob.forward_Op_1D(parameter=10.0, nx=n)
+    x1 = prob.gen_xtrue(n, "curve0")
+    b1, delta1 = prob.add_noise(prob.gen_data(x1, parameter=10.0),
+                                "Gaussian", 0.02)
+    A_dense = A.mat.cpu().numpy()
+    delta_total = float(np.linalg.norm(b1.reshape(-1) - A_dense @ x1))
+    np.random.seed(0)
+    prob2 = Deblurring2D(device=dev, dtype=dtype)
+    A2 = prob2.forward_Op([9, 9], (3, 3), 128, 128)
+    x2 = prob2.gen_true("h_im", nx=128, ny=128)
+    b2, delta2 = prob2.add_noise(prob2.gen_data(x2.reshape(-1, 1)),
+                                 "Gaussian", 0.01)
+    one = dict(A=A, A_dense=A_dense, x=x1, b=b1, delta=float(delta1),
+               delta_total=delta_total,
+               bt=torch.tensor(b1.reshape(-1), dtype=dtype, device=dev),
+               L_sq=np.vstack([first_derivative_matrix(n).toarray(),
+                               np.zeros((1, n))]), n=n)
+    two = dict(A=A2, x=x2.reshape(-1), b=b2, delta=float(delta2),
+               bt=torch.tensor(b2.reshape(-1), dtype=dtype, device=dev))
+    return one, two
+
+
+def deblur_solves(dev, p1, p2):
+    """{name: (problem, iterations, solve() -> (x, lambda or k), one)} of
+    phase 9 on the inputs ``p1``, ``p2``, as ``demo_reference.py deblur``
+    runs them; ``one`` (the fused solvers; else None) makes a call that
+    runs iteration SYNC_ITER, whose profile stands for the solve's (a
+    whole fused solve is ~10^5 small launches: minutes to profile)."""
+    from trips_tpu_torch.operators import (FirstDerivative1D,
+                                           FirstDerivative2D,
+                                           FrameletOperator)
+    from trips_tpu_torch.solvers import (GKS, MMGKS, Arnoldi_Tikhonov,
+                                         Hybrid_GMRES, Hybrid_LSQR, Tikhonov,
+                                         tGSVD_sol, tSVD_sol)
+    from trips_tpu_torch.solvers import fused as F
+
+    its, d = DEBLUR_ITERS, DEBLUR_DIM
+    A, A2, b, b2 = p1["A"], p2["A"], p1["bt"], p2["bt"]
+    L1 = FirstDerivative1D(p1["n"], device=dev)
+    L2 = FirstDerivative2D(128, 128, device=dev)
+    W = FrameletOperator(128, 128, 2, dtype=b2.dtype, device=dev)
+    Ad, d1, d2 = p1["A_dense"], p1["delta"], p2["delta"]
+
+    def info(out):
+        return out[0], out[1]["regParam"]
+
+    def last(out):  # the fused solvers: the whole lambda history
+        return out[0], out[1]
+
+    out = {
+        "1D TSVD dp": (1, 1, lambda: tSVD_sol(
+            Ad, p1["b"], regparam="dp", delta=d1, device=dev)),
+        "1D TGSVD dp": (1, 1, lambda: tGSVD_sol(
+            Ad, p1["L_sq"], p1["b"], regparam="dp", delta=d1, device=dev)),
+        "1D Tikhonov dp": (1, 1, lambda: Tikhonov(
+            Ad, p1["b"], np.eye(p1["n"]), regparam="dp", delta=d1,
+            device=dev)),
+        "1D Hybrid GMRES dp": (1, its, lambda: info(Hybrid_GMRES(
+            A, b, n_iter=its, regparam="dp", delta=p1["delta_total"],
+            reorth=True))),
+        "1D Hybrid LSQR dp": (1, its, lambda: info(Hybrid_LSQR(
+            A, b, n_iter=its, regparam="dp", delta=p1["delta_total"],
+            reorth=True))),
+        "1D GKS dp": (1, its, lambda: info(GKS(
+            A, b, L1, projection_dim=d, n_iter=its, regparam="dp",
+            delta=d1))),
+        "2D Arnoldi-Tikhonov dp": (2, AT_ITERS, lambda: Arnoldi_Tikhonov(
+            A2, b2, n_iter=AT_ITERS, regparam="dp", delta=d2)),
+        "2D Hybrid GMRES gcv": (2, its, lambda: info(Hybrid_GMRES(
+            A2, b2, n_iter=its, regparam="gcv"))),
+        "2D Hybrid LSQR gcv": (2, its, lambda: info(Hybrid_LSQR(
+            A2, b2, n_iter=its, regparam="gcv"))),
+        "2D GKS gcv": (2, its, lambda: info(GKS(
+            A2, b2, L2, projection_dim=d, n_iter=its, regparam="gcv"))),
+        "2D MMGKS derivative": (2, its, lambda: info(MMGKS(
+            A2, b2, L2, pnorm=2, qnorm=1, projection_dim=d, n_iter=its,
+            regparam="gcv"))),
+        "2D MMGKS framelet": (2, FRAMELET_ITERS, lambda: info(MMGKS(
+            A2, b2, W, pnorm=2, qnorm=1, projection_dim=d,
+            n_iter=FRAMELET_ITERS, regparam="gcv")))}
+    out = {k: v + (None,) for k, v in out.items()}
+
+    def body_at(body, carry, start=0):
+        carry = F._run(body, carry, start, SYNC_ITER)
+        return lambda: body(SYNC_ITER, carry)
+
+    n = FUSED1D_ITERS
+    for mode in ("gcv", "dp", "l_curve"):
+        out[f"fused GKS {mode}"] = (1, n, lambda mode=mode: last(F.fused_gks(
+            A, b, L1, projection_dim=d, n_iter=n, regparam_mode=mode,
+            delta=d1, device=dev)[:2]), lambda mode=mode: body_at(
+            F._gks_body(A, b, L1, mode, 1.0, d1, 1.01, d, d + n),
+            F._gks_init(A, b, L1, d, n)))
+    out["fused MMGKS gcv"] = (1, n, lambda: last(F.fused_mmgks(
+        A, b, L1, pnorm=2.0, qnorm=1.0, projection_dim=d, n_iter=n,
+        regparam_mode="gcv", device=dev)[:2]), lambda: body_at(
+        F._mmgks_body(A, b, L1, "gcv", 2.0, 1.0, 0.1, 1.0, 0.0, 1.01,
+                      "holder", None, d, d + n),
+        F._mmgks_init(A, b, L1, d, n)))
+    nh = FUSED1D_HYB_ITERS
+    out["fused Hybrid LSQR gcv"] = (1, nh, lambda: last(F.fused_hybrid_lsqr(
+        A, b, n_iter=nh, regparam_mode="gcv", device=dev)), lambda: body_at(
+        *F._hybrid_lsqr_parts(A, b, nh, "gcv", 1.0, 0.0, 1.01, False)))
+    for mode, reorth in (("gcv", False), ("dp", False), ("dp", True)):
+        out[f"fused Hybrid GMRES {mode}" + " reorth" * reorth] = (
+            2, its, lambda mode=mode, reorth=reorth: last(
+                F.fused_hybrid_gmres(A2, b2, n_iter=its, regparam_mode=mode,
+                                     delta=d2, reorth=reorth, device=dev)),
+            lambda mode=mode, reorth=reorth: body_at(*F._hybrid_gmres_parts(
+                A2, b2, its, mode, 1.0, d2, 1.01, reorth)))
+    return out
+
+
+def deblur_operators(dev, card, gen):
+    """Phase 9's operator checks: Blur1D (n = 200), Blur2D (128x128, the
+    9x9 PSF and an even 4x6 one) and FrameletOperator(128, 128, 2), float32
+    against float64 on the card and float64 against scipy on the host, the
+    flipped-PSF rmatvec, the framelet's tight frame and adjointness, one
+    conv2d per column apply; device us per apply against the bytes bound.
+    -> {operator: device us per matvec}."""
+    import torch
+    from scipy.ndimage import convolve, convolve1d
+
+    from trips_tpu_torch.operators import Blur1D, Blur2D, FrameletOperator
+
+    f32, f64 = torch.float32, torch.float64
+    ops = {
+        "Blur1D n=200": lambda dt: Blur1D(200, 10.0, dtype=dt, device=dev),
+        "Blur2D 128x128 9x9": lambda dt: Blur2D([9, 9], (3, 3), 128, 128,
+                                                dtype=dt, device=dev),
+        "Blur2D 128x128 4x6": lambda dt: Blur2D([4, 6], (1.0, 2.0), 128,
+                                                128, dtype=dt, device=dev),
+        "FrameletOperator(128, 128, 2)": lambda dt: FrameletOperator(
+            128, 128, 2, dtype=dt, device=dev)}
+    us = {}
+    for name, make in ops.items():
+        o32, o64 = make(f32), make(f64)
+        m, n = o64.shape
+        x = torch.rand(n, dtype=f64, device=dev, generator=gen)
+        y = torch.rand(m, dtype=f64, device=dev, generator=gen)
+        X = torch.rand(n, DEBLUR_COLS, dtype=f64, device=dev, generator=gen)
+        Y = torch.rand(m, DEBLUR_COLS, dtype=f64, device=dev, generator=gen)
+        errs = {}
+        for meth, arg in (("matvec", x), ("rmatvec", y), ("matmat", X),
+                          ("rmatmat", Y)):
+            ref = getattr(o64, meth)(arg)
+            errs[meth] = rel(getattr(o32, meth)(arg.float()), ref)
+        xh, yh = x.cpu().numpy(), y.cpu().numpy()
+        if name.startswith("Blur1D"):
+            host = {"matvec": convolve1d(xh, o64.psf, mode="reflect"),
+                    "rmatvec": convolve1d(yh, o64.psf[::-1], mode="reflect")}
+        elif name.startswith("Blur2D"):
+            psf = o64.psf.cpu().numpy()
+            host = {"matvec": convolve(xh.reshape(128, 128), psf,
+                                       mode="reflect").reshape(-1),
+                    "rmatvec": convolve(yh.reshape(128, 128),
+                                        psf[::-1, ::-1],
+                                        mode="reflect").reshape(-1)}
+        else:
+            Wn = o64.Wn.cpu().numpy()
+            s = 5  # 2 l + 1
+            host = {"matvec": (Wn @ xh.reshape(128, 128, order="F") @ Wn.T)
+                    .reshape(-1, order="F"),
+                    "rmatvec": (Wn.T @ yh.reshape(128 * s, 128 * s,
+                                                  order="F") @ Wn)
+                    .reshape(-1, order="F")}
+        vs_host = {k: rel(getattr(o64, k)(a).cpu(), torch.from_numpy(v))
+                   for k, v, a in ((k, v, x if k == "matvec" else y)
+                                   for k, v in host.items())}
+        extra = ""
+        if name.startswith("Frame"):
+            adj = abs(float(o64.matvec(x) @ y - x @ o64.rmatvec(y))) / abs(
+                float(o64.matvec(x) @ y))
+            tight = rel(o64.rmatvec(o64.matvec(x)), x)
+            eye = float((o64.Wn.T @ o64.Wn - torch.eye(
+                128, dtype=f64, device=dev)).abs().max())
+            extra = (f"; adjointness {adj!r}, ||W^T W x - x|| / ||x|| "
+                     f"{tight!r}, max |Wn^T Wn - I| {eye!r}")
+            check(adj <= BLUR_F64 and tight <= BLUR_F64 and eye <= BLUR_F64,
+                  f"{name} tight frame")
+        else:
+            key = "aten::conv2d" if name.startswith("Blur2D") else \
+                "aten::matmul"
+            o32.matmat(X.float())
+            convs = {}
+            for meth in ("matmat", "rmatmat"):
+                with torch.profiler.profile(activities=[
+                        torch.profiler.ProfilerActivity.CPU]) as prof:
+                    getattr(o32, meth)((X if meth == "matmat" else Y).float())
+                convs[meth] = sum(e.count for e in prof.key_averages()
+                                  if e.key == key)
+            extra = (f"; {key} calls per column apply of {DEBLUR_COLS} "
+                     f"columns: {convs}")
+            check(all(v == 1 for v in convs.values()),
+                  f"{name} one {key} per column apply")
+        xs = x.float()
+        t_vec = device_ms(lambda: o32.matvec(xs), 50) * 1e3
+        Xs = X.float()
+        t_mat = device_ms(lambda: o32.matmat(Xs), 50) * 1e3
+        # what one matvec reads besides x: the matrix, the flipped PSF, or
+        # the two analysis matrices; and its multiply-adds
+        leaves = [getattr(o32, a) for a in ("mat", "_fwd_w", "Wn", "Wm")
+                  if hasattr(o32, a)]
+        if name.startswith("Blur1D"):
+            flops = 2 * n * n
+        elif name.startswith("Blur2D"):
+            flops = 2 * o32.psf.numel() * n
+        else:
+            rn = o32.Wn.shape[0]
+            flops = 2 * (rn * 128 * 128 + rn * 128 * rn)
+        bnd = bound(nbytes(xs, o32.matvec(xs), *leaves), flops, F32_FLOPS)
+        us[name] = t_vec
+        print(f"[9] {name}: float32 against float64 (card) {errs!r} (limit "
+              f"{BLUR_F32}); float64 against scipy / NumPy (host) "
+              f"{vs_host!r} (limit {BLUR_F64}){extra}; float32 device "
+              f"{t_vec!r} us per matvec, {t_mat!r} us per matmat of "
+              f"{DEBLUR_COLS}; bound {bnd[0] * 1e3!r} us per matvec "
+              f"({bnd[1]}); "
+              f"card {card}")
+        check(all(v <= BLUR_F32 for v in errs.values()),
+              f"{name} float32 against float64 {errs!r}")
+        check(all(v <= BLUR_F64 for v in vs_host.values()),
+              f"{name} against the host {vs_host!r}")
+    return us
+
+
+def deblur_path(dev, card, gen):
+    """Phase 9: the deblurring operators, then every solve of the 1D, 2D
+    and fused deblurring demos and fused_hybrid_gmres on the card in
+    float32, each final relError held to DEBLUR_GATE of the JAX package's
+    (float64 for DEBLUR_F64_GATED), TSVD/TGSVD k equal to JAX's; a second
+    run for the wall per iteration, then its device busy time per
+    iteration and idle share. No K1-K6 launch on this path."""
+    import torch
+
+    from trips_tpu_torch.sparse import banded_kernels as bk
+
+    t0 = time.perf_counter()
+    op_us = deblur_operators(dev, card, gen)
+    p1, p2 = deblur_problems(dev, torch.float32)
+    norms = (float(np.linalg.norm(p1["b"])), float(np.linalg.norm(p2["b"])))
+    check(all(abs(a - b) <= 1e-12 * b for a, b in zip(norms, B_DEBLUR_NORMS)),
+          f"deblurring inputs ||b|| {norms}")
+    solves = deblur_solves(dev, p1, p2)
+    truth = {1: p1["x"], 2: p2["x"]}
+    walls = {}
+    bk.reset_launch_counts()
+    for name, (which, its, solve, one) in solves.items():
+        errs, pars, hist = [], [], None
+        for run in range(2):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            x, par = solve()
+            torch.cuda.synchronize()
+            if run:
+                walls[name] = (time.perf_counter() - t) / its * 1e3
+            check(bool(torch.isfinite(x).all()), f"{name} finite")
+            xh = x.double().cpu().numpy().reshape(-1)
+            errs.append(float(np.linalg.norm(xh - truth[which])
+                              / np.linalg.norm(truth[which])))
+            if isinstance(par, torch.Tensor):
+                hist = par.double().cpu().numpy()
+                par = hist[-1]
+            pars.append(float(par))
+        f64 = name in DEBLUR_F64_GATED
+        ref, ref_par = (JAX_DEBLUR_F64 if f64 else JAX_DEBLUR)[name]
+        print(f"[9] {name}: relError final {errs[0]!r}, a second run "
+              f"{errs[1]!r} (JAX CPU {'float64' if f64 else 'float32'} "
+              f"{ref!r}, float32 {JAX_DEBLUR[name][0]!r}, float64 "
+              f"{JAX_DEBLUR_F64[name][0]!r}; gate {DEBLUR_GATE}); "
+              f"{'k' if 'SVD' in name else 'lambda'} {pars[0]!r}, second "
+              f"run {pars[1]!r} (JAX {ref_par!r})"
+              + ("" if hist is None else
+                 f", the last five {hist[-5:].tolist()!r}")
+              + f"; wall {walls[name]!r} ms/iter (the second run, {its} "
+              f"iterations, set-up included); card {card}")
+        check(max(abs(e - ref) for e in errs) <= DEBLUR_GATE,
+              f"{name} final relErrors {errs!r}")
+        if "SVD" in name:
+            check(pars == [ref_par] * 2, f"{name} k {pars} vs {ref_par}")
+        # its profile right after its runs (a profile of the first solve
+        # after all of them saw no device time on an H100, six times over);
+        # the fused solvers' of iteration SYNC_ITER against its own wall
+        step, wall, per = solve, walls[name], its
+        if one is not None:
+            step, per = one(), 1
+            step()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3
+        parts = {}
+        busy = device_ms(step, 1, parts, sessions=1, warm=False) / per
+        top = sorted(parts.items(), key=lambda kv: -kv[1])[:5]
+        print(f"[9] {name}"
+              + ("" if one is None else f", iteration {SYNC_ITER}")
+              + f": device busy {busy * 1e3!r} us/iter, wall "
+              f"{wall * 1e3!r} us/iter, idle share {1 - busy / wall!r}; "
+              "busy by kernel (us/iter): "
+              + ", ".join(f"{k} {v / per * 1e3!r}" for k, v in top))
+    launched = dict(bk.launch_counts)
+    check(not any(launched.values()), f"K1-K3 launched in [9]: {launched}")
+    print(f"[9] deblurring took {time.perf_counter() - t0:.1f} s (device us "
+          f"per float32 matvec: {op_us!r}); card {card}")
+
+
 def main():
     import torch
 
@@ -1863,6 +2276,8 @@ def main():
         v = f"dynamic MMGKS {mode}"
         host_walls[f"fused {v}"] = (v, dyn["walls"][v])
     fused_times(fused, card, host_walls)
+    # ---- 9. deblurring: operators, the demos' solvers, profiles ---------
+    deblur_path(dev, card, gen)
     static_fused = {k: v for k, v in fused["launches"].items()
                     if "dynamic" not in k and "checkpointed" not in k}
     dynamic_fused = {k: v for k, v in fused["launches"].items()

@@ -11,6 +11,11 @@ the gates of ``chip_smoke.py`` [6] and [7].
     python3 demo_reference.py fused64  # the same solves in float64
     python3 demo_reference.py fused_torch  # trips_tpu_torch on the CPU,
                                            # the dynamic float32 solves
+    python3 demo_reference.py deblur   # trips_tpu, the deblurring demos'
+                                       # solvers, x64 off
+    python3 demo_reference.py deblur64 # the same solves in float64
+    python3 demo_reference.py deblur_probe  # trips_tpu_torch on the card:
+                                            # where its float32 solves part
 
 Both run ``demos/demo_tomography.py --large`` (grains phantom, 256x256, 60
 views, Gaussian noise 0.001 after ``np.random.seed(0)``) with 30
@@ -51,7 +56,36 @@ The ``fused_torch`` mode runs the dynamic float32 solves of ``fused``
 through ``trips_tpu_torch`` on the CPU (the kernels' plain versions, no
 atomics: the same bytes every run), GCV twice each and the fixed-lambda
 pair once, printing each final relError and the last lambdas.
+
+The ``deblur`` mode runs, through ``trips_tpu`` with x64 off (float32, as
+the demos run on a TPU), the solvers of ``chip_smoke.py`` [9]: the 1D
+demo (``demos/demo_1d_deblurring.py``: n = 200, parameter 10, ``curve0``,
+2% noise after ``np.random.seed(0)``, 30 iterations: TSVD, TGSVD and
+Tikhonov with DP, Hybrid GMRES and Hybrid LSQR with DP on the total
+discrepancy and ``reorth``, GKS with DP and ``FirstDerivative1D``); the 2D
+demo with ``--large`` (``demos/demo_2d_deblurring.py``: 128x128 ``h_im``,
+9x9 PSF of spread (3, 3), 1% noise, 30 iterations: Arnoldi-Tikhonov DP
+(8), Hybrid GMRES and Hybrid LSQR with GCV, GKS with GCV and
+``FirstDerivative2D``, MMGKS p=2 q=1 with ``FirstDerivative2D`` and with
+``FrameletOperator(128, 128, 2)`` (15)); ``demos/demo_fused_tpu.py
+--config deblur1d`` (the 1D inputs: ``fused_gks`` with GCV, DP and the
+L-curve and ``fused_mmgks`` with GCV, 15 iterations, ``fused_hybrid_lsqr``
+with GCV, 20); and ``fused_hybrid_gmres`` with GCV and with DP on the 2D
+inputs (30), DP also with ``reorth``. It prints each final relError with
+its lambda (or k), and the same solve's final relError on ``b`` perturbed
+by one unit of the working precision (``b * (1 + eps * N(0, 1))``,
+``default_rng(1)``): the spread two correct runs can show. About 10
+minutes on the CPU. ``deblur64`` runs the same solves with x64 on, in
+float64 (about 10 minutes).
+
+The ``deblur_probe`` mode runs ``trips_tpu_torch`` alone, on the card when
+there is one and on its host: the float32 fused GCV solves of ``deblur``
+with the projected problems' ``svd``, ``qr`` and ``solve_ex`` routed one
+at a time elsewhere, on ``b`` perturbed by one float32 unit, and the GCV
+curve of the last iteration; fused Hybrid GMRES with DP with and without
+reorthogonalization (``run_deblur_probe``).
 """
+import contextlib
 import os
 import sys
 import time
@@ -365,11 +399,308 @@ def run_fused_torch():
                       f"{time.time() - t:.1f} s", flush=True)
 
 
+DEBLUR_ITERS, FRAMELET_ITERS, AT_ITERS = 30, 15, 8
+FUSED1D_ITERS, FUSED1D_HYB_ITERS = 15, 20
+
+
+def run_deblur(x64=False):
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    sys.path.insert(0, str(ROOT))
+    import jax
+
+    jax.config.update("jax_enable_x64", x64)
+    import jax.numpy as jnp
+
+    from trips_tpu.operators import (FirstDerivative1D, FirstDerivative2D,
+                                     FrameletOperator,
+                                     first_derivative_matrix)
+    from trips_tpu.problems import Deblurring1D, Deblurring2D
+    from trips_tpu.solvers import (GKS, MMGKS, Arnoldi_Tikhonov,
+                                   Hybrid_GMRES, Hybrid_LSQR, Tikhonov,
+                                   fused, tGSVD_sol, tSVD_sol)
+
+    print("x64", jax.config.jax_enable_x64, jax.__version__, flush=True)
+    np.random.seed(0)
+    n = 200
+    prob = Deblurring1D()
+    A = prob.forward_Op_1D(parameter=10.0, nx=n)
+    x1 = prob.gen_xtrue(n, "curve0")
+    b1, delta1 = prob.add_noise(prob.gen_data(x1, parameter=10.0),
+                                "Gaussian", 0.02)
+    delta1 = float(delta1)
+    A_dense = np.asarray(A.mat)
+    delta_total = float(np.linalg.norm(
+        np.asarray(b1).reshape(-1) - A_dense @ np.asarray(x1).reshape(-1)))
+    L_sq = np.vstack([first_derivative_matrix(n).toarray(), np.zeros((1, n))])
+
+    np.random.seed(0)
+    prob2 = Deblurring2D()
+    A2 = prob2.forward_Op([9, 9], (3, 3), 128, 128)
+    x2 = prob2.gen_true("h_im", nx=128, ny=128)
+    b2, delta2 = prob2.add_noise(prob2.gen_data(x2.reshape(-1, 1)),
+                                 "Gaussian", 0.01)
+    delta2 = float(delta2)
+    print("1D ||b||", repr(float(np.linalg.norm(b1))), "delta", repr(delta1),
+          "delta_total", repr(delta_total), "2D ||b||",
+          repr(float(np.linalg.norm(b2))), "delta", repr(delta2), flush=True)
+    dt = jnp.float64 if x64 else jnp.float32
+    eps = float(jnp.finfo(dt).eps)
+    its, d = DEBLUR_ITERS, 3
+    L1, L2 = FirstDerivative1D(n), FirstDerivative2D(128, 128)
+    W = FrameletOperator(128, 128, 2)
+
+    def first(out):
+        return out[0], out[1]
+
+    def lams(out):
+        return out[0], float(np.asarray(out[1])[-1])
+
+    def info(out):
+        return out[0], out[1]["regParam"]
+
+    # name -> (problem, solve(b) -> (x, lambda or k))
+    runs = {
+        "1D TSVD dp": (1, lambda b: first(tSVD_sol(
+            A_dense, b, regparam="dp", delta=delta1))),
+        "1D TGSVD dp": (1, lambda b: first(tGSVD_sol(
+            A_dense, L_sq, b, regparam="dp", delta=delta1))),
+        "1D Tikhonov dp": (1, lambda b: first(Tikhonov(
+            A_dense, b, np.eye(n), regparam="dp", delta=delta1))),
+        "1D Hybrid GMRES dp": (1, lambda b: info(Hybrid_GMRES(
+            A, b, n_iter=its, regparam="dp", delta=delta_total,
+            reorth=True))),
+        "1D Hybrid LSQR dp": (1, lambda b: info(Hybrid_LSQR(
+            A, b, n_iter=its, regparam="dp", delta=delta_total,
+            reorth=True))),
+        "1D GKS dp": (1, lambda b: info(GKS(
+            A, b.reshape(-1), L1, projection_dim=d, n_iter=its,
+            regparam="dp", delta=delta1))),
+        "2D Arnoldi-Tikhonov dp": (2, lambda b: first(Arnoldi_Tikhonov(
+            A2, b, n_iter=AT_ITERS, regparam="dp", delta=delta2))),
+        "2D Hybrid GMRES gcv": (2, lambda b: info(Hybrid_GMRES(
+            A2, b, n_iter=its, regparam="gcv"))),
+        "2D Hybrid LSQR gcv": (2, lambda b: info(Hybrid_LSQR(
+            A2, b, n_iter=its, regparam="gcv"))),
+        "2D GKS gcv": (2, lambda b: info(GKS(
+            A2, b, L2, projection_dim=d, n_iter=its, regparam="gcv"))),
+        "2D MMGKS derivative": (2, lambda b: info(MMGKS(
+            A2, b, L2, pnorm=2, qnorm=1, projection_dim=d, n_iter=its,
+            regparam="gcv"))),
+        "2D MMGKS framelet": (2, lambda b: info(MMGKS(
+            A2, b, W, pnorm=2, qnorm=1, projection_dim=d,
+            n_iter=FRAMELET_ITERS, regparam="gcv"))),
+    }
+    for mode in ("gcv", "dp", "l_curve"):
+        runs[f"fused GKS {mode}"] = (1, lambda b, mode=mode: lams(
+            fused.fused_gks(A, jnp.asarray(b.reshape(-1), dt), L1,
+                            projection_dim=d, n_iter=FUSED1D_ITERS,
+                            regparam_mode=mode, delta=delta1)))
+    runs["fused MMGKS gcv"] = (1, lambda b: lams(fused.fused_mmgks(
+        A, jnp.asarray(b.reshape(-1), dt), L1, pnorm=2.0, qnorm=1.0,
+        projection_dim=d, n_iter=FUSED1D_ITERS, regparam_mode="gcv")))
+    runs["fused Hybrid LSQR gcv"] = (1, lambda b: lams(
+        fused.fused_hybrid_lsqr(A, jnp.asarray(b.reshape(-1), dt),
+                                n_iter=FUSED1D_HYB_ITERS,
+                                regparam_mode="gcv")))
+    for mode in ("gcv", "dp"):
+        runs[f"fused Hybrid GMRES {mode}"] = (2, lambda b, mode=mode: lams(
+            fused.fused_hybrid_gmres(A2, jnp.asarray(b, dt), n_iter=its,
+                                     regparam_mode=mode, delta=delta2)))
+    runs["fused Hybrid GMRES dp reorth"] = (2, lambda b: lams(
+        fused.fused_hybrid_gmres(A2, jnp.asarray(b, dt), n_iter=its,
+                                 regparam_mode="dp", delta=delta2,
+                                 reorth=True)))
+
+    data = {1: (np.asarray(b1), np.asarray(x1).reshape(-1)),
+            2: (np.asarray(b2).reshape(-1), np.asarray(x2).reshape(-1))}
+    rng = np.random.default_rng(1)
+    perturbed = {k: b * (1 + eps * rng.standard_normal(b.shape))
+                 for k, (b, _) in data.items()}
+    for name, (which, solve) in runs.items():
+        b, xt = data[which]
+        t = time.time()
+        x, par = solve(b)
+        err = float(np.linalg.norm(np.asarray(x).reshape(-1) - xt)
+                    / np.linalg.norm(xt))
+        secs = time.time() - t
+        xp, parp = solve(perturbed[which])
+        errp = float(np.linalg.norm(np.asarray(xp).reshape(-1) - xt)
+                     / np.linalg.norm(xt))
+        print(name, "final", repr(err), "param", repr(float(par)),
+              "perturbed final", repr(errp), "param", repr(float(parp)),
+              f"{secs:.1f} s", flush=True)
+
+
+@contextlib.contextmanager
+def _routed(svd=None, qr=None, solve=None):
+    """``torch.linalg``'s ``svd``, ``qr`` and ``solve_ex`` routed for the
+    duration: "host" runs the call on the CPU in the input's dtype,
+    "float64" runs it on the input's device in float64, a cuSOLVER driver
+    name ("gesvd", "gesvdj") is passed to ``svd`` as ``driver``
+    in place of ``core.device.svd``'s.
+    The result comes back on the input's device in its dtype."""
+    import torch
+
+    la = torch.linalg
+    saved = {k: getattr(la, k) for k in ("svd", "qr", "solve_ex")}
+
+    def route(name, how):
+        orig = saved[name]
+        if how is None:
+            return orig
+
+        def call(A, *args, **kw):
+            if how == "host":
+                kw.pop("driver", None)
+                out = orig(A.cpu(), *[a.cpu() for a in args], **kw)
+            elif how == "float64":
+                out = orig(A.double(), *[a.double() for a in args], **kw)
+            else:
+                out = orig(A, *args, **{**kw, "driver": how})
+            return type(out)(t.to(A.device, t.dtype if t.dtype in (
+                torch.int32, torch.int64) else A.dtype) for t in out)
+        return call
+
+    try:
+        la.svd, la.qr, la.solve_ex = (route("svd", svd), route("qr", qr),
+                                      route("solve_ex", solve))
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(la, k, v)
+
+
+def run_deblur_probe():
+    """Where the card's float32 fused GCV solves and fused Hybrid GMRES
+    with DP leave the CPU's (``chip_smoke.py`` [9]): each solve on the card
+    with the projected problems' ``svd``, ``qr`` and ``solve_ex`` routed
+    one at a time (to the CPU, to float64, to another cuSOLVER SVD driver),
+    on the CPU, on ``b`` perturbed by one float32 unit (eight draws), and
+    the GCV curve of the last iteration; fused Hybrid GMRES DP with and
+    without reorthogonalization in float32 and float64; the device time of
+    one projected SVD by driver. Runs ``trips_tpu_torch`` only, on the card
+    and its host (about a minute there), or on the CPU alone where no card
+    is present (about 5 minutes)."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    from chip_smoke import deblur_problems
+    from trips_tpu_torch.operators import FirstDerivative1D
+    from trips_tpu_torch.solvers import fused as F
+
+    cuda = torch.cuda.is_available()
+    devs = ["cuda", "cpu"] if cuda else ["cpu"]
+    print("torch", torch.__version__, "cuda", torch.version.cuda,
+          torch.cuda.get_device_name(0) if cuda else "no card", flush=True)
+    probs = {(dev, dt): deblur_problems(dev, dt) for dev in devs
+             for dt in (torch.float32, torch.float64)}
+    eps = float(np.finfo(np.float32).eps)
+
+    def relerr(x, xt):
+        return float(np.linalg.norm(x.double().cpu().numpy().reshape(-1)
+                                    - xt) / np.linalg.norm(xt))
+
+    curves = []
+    brent = F.fminbound
+
+    def recorded(func, *a, **kw):  # keep the last GCV function
+        curves.append(func)
+        return brent(func, *a, **kw)
+
+    F.fminbound = recorded
+
+    def one(name, dev, dt=torch.float32, b=None, reorth=False):
+        p1, p2 = probs[dev, dt]
+        if name.startswith("fused Hybrid GMRES"):
+            x, lams = F.fused_hybrid_gmres(
+                p2["A"], p2["bt"] if b is None else b, n_iter=DEBLUR_ITERS,
+                regparam_mode="dp", delta=p2["delta"], reorth=reorth,
+                device=dev)
+            return relerr(x, p2["x"]), lams
+        L1 = FirstDerivative1D(p1["n"], device=dev)
+        kw = dict(projection_dim=3, n_iter=FUSED1D_ITERS,
+                  regparam_mode="gcv", device=dev)
+        b = p1["bt"] if b is None else b
+        if name == "fused GKS gcv":
+            x, lams, _ = F.fused_gks(p1["A"], b, L1, **kw)
+        else:
+            x, lams, _ = F.fused_mmgks(p1["A"], b, L1, pnorm=2.0, qnorm=1.0,
+                                       **kw)
+        return relerr(x, p1["x"]), lams
+
+    def show(label, err, lams):
+        print(f"{label}: relError {err!r}, lambdas "
+              f"{lams.double().cpu().numpy().tolist()!r}", flush=True)
+
+    routes = {"as shipped": {}, "svd host": dict(svd="host"),
+              "svd float64": dict(svd="float64"),
+              "svd gesvd": dict(svd="gesvd"),
+              "svd gesvdj": dict(svd="gesvdj"),
+              "qr host": dict(qr="host"), "solve_ex host": dict(solve="host"),
+              "svd, qr, solve_ex host": dict(svd="host", qr="host",
+                                             solve="host")}
+    grid = np.logspace(-9, 2, 45)
+    for name in ("fused GKS gcv", "fused MMGKS gcv"):
+        for dev in devs:
+            for label, how in routes.items():
+                if dev == "cpu" and how and label != "svd float64":
+                    continue
+                with _routed(**how):
+                    curves.clear()
+                    err, lams = one(name, dev)
+                show(f"{name} on {dev}, {label}", err, lams)
+                if label in ("as shipped", "svd gesvdj"):
+                    f = curves[-1]
+                    vals = [float(f(torch.full((), v, dtype=torch.float32,
+                                               device=dev))) for v in grid]
+                    print(f"{name} on {dev}, {label}: GCV at the last "
+                          f"iteration on lambda = logspace(-9, 2, 45): "
+                          f"{vals!r}", flush=True)
+            b = probs[dev, torch.float32][0]["bt"]
+            rng = np.random.default_rng(1)
+            errs = []
+            for _ in range(8):
+                noise = torch.from_numpy(rng.standard_normal(b.shape[0]))
+                bp = (b.double() * (1 + eps * noise.to(dev))).float()
+                errs.append(one(name, dev, b=bp)[0])
+            print(f"{name} on {dev}, b perturbed by one float32 unit (eight "
+                  f"draws, default_rng(1)): relErrors {errs!r}", flush=True)
+        err, lams = one(name, devs[0], dt=torch.float64)
+        show(f"{name} on {devs[0]}, float64", err, lams)
+    name = "fused Hybrid GMRES dp"
+    for dev in devs:
+        for dt in (torch.float32, torch.float64):
+            for reorth in (False, True):
+                err, lams = one(name, dev, dt=dt, reorth=reorth)
+                show(f"{name} on {dev}, {str(dt)[6:]}, reorth {reorth}", err,
+                     lams[-3:])
+    if cuda:  # the device time of one projected SVD (1D GKS: 18 x 18)
+        M = torch.randn(18, 18, device="cuda")
+        for driver in (None, "gesvd", "gesvdj", "gesvda"):
+            kw = {} if driver is None else dict(driver=driver)
+            for _ in range(3):
+                torch.linalg.svd(M, **kw)
+            start, stop = (torch.cuda.Event(enable_timing=True)
+                           for _ in range(2))
+            start.record()
+            for _ in range(50):
+                torch.linalg.svd(M, **kw)
+            stop.record()
+            torch.cuda.synchronize()
+            print(f"svd of 18 x 18 float32, driver {driver}: "
+                  f"{start.elapsed_time(stop) / 50 * 1e3!r} us per call "
+                  "(CUDA events, the host's status read included)",
+                  flush=True)
+
+
 if __name__ == "__main__":
     modes = {"jax": run_jax, "torch": run_torch, "dynamic": run_dynamic,
              "fused": run_fused, "fused64": lambda: run_fused(x64=True),
-             "fused_torch": run_fused_torch}
+             "fused_torch": run_fused_torch, "deblur": run_deblur,
+             "deblur64": lambda: run_deblur(x64=True),
+             "deblur_probe": run_deblur_probe}
     if len(sys.argv) != 2 or sys.argv[1] not in modes:
         sys.exit(f"usage: {sys.argv[0]} "
-                 "jax|torch|dynamic|fused|fused64|fused_torch")
+                 "jax|torch|dynamic|fused|fused64|fused_torch|deblur|"
+                 "deblur64|deblur_probe")
     modes[sys.argv[1]]()

@@ -824,3 +824,68 @@ def test_fused_dynamic_checkpoint_on_card(cuda, dynamic32, tmp_path):
     xt = torch.from_numpy(x_true.reshape(-1))
     errs = [_rel(x[0][0].cpu(), xt) for x in xs.values()]
     assert abs(errs[0] - errs[1]) <= 1e-3, errs
+
+
+@pytest.mark.parametrize("dim,spread,nx,ny", [((9, 9), (3, 3), 128, 128),
+                                              ((4, 6), (1.0, 2.0), 60, 44)])
+def test_blur2d_float32_matches_float64(cuda, dim, spread, nx, ny):
+    """cuDNN's float32 conv2d with TF32 off (``import trips_tpu_torch``
+    turns it off): within 1e-6 of the float64 apply on the card, and the
+    float64 apply within 1e-12 of the CPU's."""
+    from trips_tpu_torch.operators import Blur2D
+
+    ops = {dt: Blur2D(dim, spread, nx, ny, dtype=dt, device=cuda)
+           for dt in (torch.float32, torch.float64)}
+    cpu = Blur2D(dim, spread, nx, ny, dtype=torch.float64, device="cpu")
+    g = torch.Generator(device=cuda).manual_seed(0)
+    X = torch.rand(nx * ny, 4, device=cuda, generator=g, dtype=torch.float64)
+    for name in ("matvec", "rmatvec", "matmat", "rmatmat"):
+        arg = X[:, 0] if name.endswith("vec") else X
+        ref = getattr(ops[torch.float64], name)(arg)
+        assert _rel(getattr(ops[torch.float32], name)(arg.float()), ref) <= 1e-6
+        assert _rel(ref.cpu(), getattr(cpu, name)(arg.cpu())) <= 1e-12
+
+
+def test_blur2d_matmat_is_one_conv2d(cuda):
+    """A column apply is one conv2d over all columns (the JAX package's
+    vmap), not one per column."""
+    from trips_tpu_torch.operators import Blur2D
+
+    op = Blur2D((9, 9), (3, 3), 128, 128, device=cuda)
+    X = torch.rand(128 * 128, 8, device=cuda)
+    op.matmat(X)
+    act = [torch.profiler.ProfilerActivity.CPU]
+    for fn in (op.matmat, op.rmatmat):
+        with torch.profiler.profile(activities=act) as prof:
+            fn(X)
+        counts = {e.key: e.count for e in prof.key_averages()}
+        assert counts.get("aten::conv2d") == 1, counts
+
+
+@pytest.mark.parametrize("solver", ["fused_gks", "fused_mmgks"])
+def test_fused_gcv_deblur1d_matches_cpu(cuda, solver):
+    """The 1D deblurring demo's float32 fused GCV solves (n = 200, 15
+    iterations) end within 1e-3 of the same solve on the CPU. With
+    PyTorch's default card SVD (Jacobi) fused GKS ended at relError 0.060
+    against 0.024 on the CPU; ``core.device.svd`` picks ``gesvd``."""
+    from trips_tpu_torch.operators import FirstDerivative1D
+    from trips_tpu_torch.problems import Deblurring1D
+    from trips_tpu_torch.solvers import fused as F
+
+    errs = []
+    for dev in (cuda, "cpu"):
+        np.random.seed(0)
+        prob = Deblurring1D(device=dev)
+        A = prob.forward_Op_1D(parameter=10.0, nx=200)
+        x_true = prob.gen_xtrue(200, "curve0")
+        b, _ = prob.add_noise(prob.gen_data(x_true, parameter=10.0),
+                              "Gaussian", 0.02)
+        kw = dict(pnorm=2.0, qnorm=1.0) if solver == "fused_mmgks" else {}
+        x = getattr(F, solver)(
+            A, torch.tensor(b.reshape(-1), dtype=torch.float32, device=dev),
+            FirstDerivative1D(200, device=dev), projection_dim=3, n_iter=15,
+            regparam_mode="gcv", device=dev, **kw)[0]
+        x_true = x_true.reshape(-1)
+        errs.append(float(np.linalg.norm(x.double().cpu().numpy() - x_true)
+                          / np.linalg.norm(x_true)))
+    assert abs(errs[0] - errs[1]) <= 1e-3, errs

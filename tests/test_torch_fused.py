@@ -131,6 +131,30 @@ def test_fused_f64_matches_jax(blur, solver, mode):
                                    rtol=RES_RTOL)
 
 
+@pytest.mark.parametrize("solver", SOLVERS)
+def test_fused_on_port_blur1d_matches_jax(solver):
+    """The port's own Deblurring1D and Blur1D (its reversed-PSF rmatvec,
+    not mat.T) build ``_blur_problem``'s operator; held against JAX's
+    Blur1D as ``test_fused_f64_matches_jax`` holds the dense one (GCV)."""
+    import trips_tpu_torch.problems as tp
+
+    A, x_true, b, delta = _blur_problem()
+    tA = tp.Deblurring1D(dtype=torch.float64, **CPU).forward_Op_1D(4.0, 80)
+    jA = Blur1D(80, 4.0)
+    assert np.array_equal(tA.mat.numpy(), A)
+    assert np.array_equal(tA._adj.numpy(), np.asarray(jA._adj))
+    n = len(b)
+    t = _call(tf, solver, tA, torch.from_numpy(b), FirstDerivative1D(n, **CPU),
+              "gcv", delta)
+    j = _call(jf, solver, jA, jnp.asarray(b), JaxD1(n), "gcv", delta)
+    tx, jx = t[0].numpy(), np.asarray(j[0])
+    assert np.linalg.norm(tx - jx) / np.linalg.norm(jx) <= X_RTOL
+    jl = np.asarray(j[1])
+    held = jl >= LAM_FLAT
+    np.testing.assert_allclose(t[1].numpy()[held], jl[held],
+                               rtol=LAM_RTOL["gcv"], atol=0)
+
+
 @pytest.fixture(scope="module")
 def deblur():
     """tests/test_fused.py:304's problem: Deblurring1D(30, 200), curve0,

@@ -172,6 +172,56 @@ def test_mmgks_matches_jax(deblur1d, regparam):
 
 
 @pytest.fixture(scope="module")
+def own_blur():
+    """The deblur1d problem built by each package's own Deblurring1D:
+    Blur1D(100, 5.0), whose rmatvec is the reversed-PSF matrix (not
+    mat.T), curve0, 2% noise after np.random.seed(42)."""
+    import trips_tpu.problems as jp
+    import trips_tpu_torch.problems as tp
+
+    out = {}
+    for key, pkg, kw in (("j", jp, {}), ("t", tp, dict(
+            dtype=torch.float64, device="cpu"))):
+        np.random.seed(42)
+        prob = pkg.Deblurring1D(**kw)
+        out[key + "A"] = prob.forward_Op_1D(5.0, 100)
+        x_true = prob.gen_xtrue(100, "curve0")
+        b, delta = prob.add_noise(prob.gen_data(x_true), "Gaussian", 0.02)
+        out[key + "b"] = np.asarray(b).reshape(-1)
+    assert np.array_equal(out["tb"], out["jb"])
+    assert np.array_equal(out["tA"]._adj.numpy(), np.asarray(out["jA"]._adj))
+    return dict(out, x_true=x_true, delta=float(delta), n=100)
+
+
+@pytest.mark.parametrize("name", ["Hybrid_LSQR", "Hybrid_GMRES", "GKS",
+                                  "MMGKS"])
+def test_solvers_on_port_blur1d_match_jax(own_blur, name):
+    """The port's own Blur1D (its reversed-PSF rmatvec included) against
+    JAX's Blur1D, GCV, float64: every iterate to 1e-6 as above; lam from
+    LAM_FLAT up to 1e-4 relative (measured at most 6.1e-5, GKS): with the pseudo-adjoint
+    the bases lose orthogonality faster, and GCV's minimum is flat enough
+    there that lam moves while the iterates agree to 1e-6."""
+    d = own_blur
+    kw = dict(n_iter=8, regparam="gcv", x_true=d["x_true"])
+    if name in ("GKS", "MMGKS"):
+        kw["projection_dim"] = 3
+        targs = (to.FirstDerivative1D(d["n"], device="cpu"),)
+        jargs = (jo.FirstDerivative1D(d["n"]),)
+    else:
+        targs = jargs = ()
+    (tx, ti) = getattr(ts, name)(d["tA"], torch.from_numpy(d["tb"]), *targs,
+                                 **kw)
+    (jx, ji) = getattr(js, name)(d["jA"], d["jb"], *jargs, **kw)
+    assert tx.dtype == torch.float64 and _rel(tx, jx) <= X_RTOL
+    assert ti["its"] == ji["its"]
+    for a, b in zip(ti["xHistory"], ji["xHistory"], strict=True):
+        assert _rel(a, b) <= X_RTOL
+    tl, jl = (np.asarray(i["regParam_history"]) for i in (ti, ji))
+    held = jl >= LAM_FLAT
+    np.testing.assert_allclose(tl[held], jl[held], rtol=1e-4)
+
+
+@pytest.fixture(scope="module")
 def dynamic():
     """Three frames of a 6x6 image, each blurred by one random block with
     decaying singular values, 1% noise."""

@@ -7,9 +7,12 @@ hand-written CUDA kernels, the on-the-fly and shear-stack projectors), and
 the regularized solvers of the tomography demo (Golub-Kahan and Arnoldi,
 the derivative and weight operators, GCV/DP/L-curve, GKS, MMGKS, the hybrid
 and projection solvers), dynamic CT (the flat, dynamic and CSR operators
-over the same kernels, the dynamic problems and loaders), and the
+over the same kernels, the dynamic problems and loaders), the
 all-on-device solvers (fused GKS, MMGKS and hybrids with lam chosen on the
-device, LSQR, checkpointed runs). The JAX package ``trips_tpu`` is the
+device, LSQR, checkpointed runs), and deblurring (the 1D and 2D blurs,
+the framelet operator, the deblurring problems, the direct Tikhonov, TSVD
+and TGSVD solvers with the GSVD, the linear-operator combinators, the
+validation helpers). The JAX package ``trips_tpu`` is the
 reference each part is tested against.
 """
 import torch

@@ -1,8 +1,10 @@
 from . import device  # noqa: F401
-from .linop import (AdjointOperator, BatchedBlockDiagOperator, DenseOperator,
-                    IdentityOperator, LinearOperator, ScaledOperator,
-                    aslinearoperator)
+from .linop import (AdjointOperator, BatchedBlockDiagOperator,
+                    BlockDiagOperator, CompositeOperator, DenseOperator,
+                    FunctionOperator, IdentityOperator, LinearOperator,
+                    ScaledOperator, VStackOperator, aslinearoperator)
 
-__all__ = ["AdjointOperator", "BatchedBlockDiagOperator", "DenseOperator",
+__all__ = ["AdjointOperator", "BatchedBlockDiagOperator", "BlockDiagOperator",
+           "CompositeOperator", "DenseOperator", "FunctionOperator",
            "IdentityOperator", "LinearOperator", "ScaledOperator",
-           "aslinearoperator"]
+           "VStackOperator", "aslinearoperator"]

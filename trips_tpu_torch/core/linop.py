@@ -3,7 +3,8 @@
 Counterpart of ``trips_tpu/core/linop.py``: ``matvec`` maps ``(n,) ->
 (m,)``, ``rmatvec`` ``(m,) -> (n,)``, ``matmat``/``rmatmat`` the same on
 ``(n, k)``/``(m, k)`` columns; ``op @ x`` dispatches on ``x.dim()`` and
-``op.T`` is the adjoint (real operators). The base ``matmat`` and
+``op.T`` is the adjoint (real operators), ``A @ B`` of two operators
+their ``CompositeOperator``. The base ``matmat`` and
 ``rmatmat`` loop over columns; an operator that can apply ``(n, k)`` at once
 overrides them. An operator may add ``normal_matvec`` (``x -> A^T A x``)
 when it has a fused normal apply. Operators hold their tensors on one
@@ -38,7 +39,7 @@ class LinearOperator:
 
     def __matmul__(self, x):
         if isinstance(x, LinearOperator):
-            return NotImplemented
+            return CompositeOperator(self, x)
         x = torch.as_tensor(x, device=self.device)
         if x.dim() == 1:
             return self.matvec(x)
@@ -207,6 +208,130 @@ class BatchedBlockDiagOperator(LinearOperator):
 
     def rmatmat(self, M):
         return self._frames(M, self.op.shape[0], self.op.rmatmat)
+
+
+def _common(ops):
+    """(dtype, device) of the operators ``ops``, which must share a device
+    type: a combinator moves no tensor between devices."""
+    types = {torch.device(o.device).type for o in ops}
+    if len(types) != 1:
+        raise ValueError(f"operators on different devices: {sorted(types)}")
+    return ops[0].dtype, ops[0].device
+
+
+class CompositeOperator(LinearOperator):
+    """``A @ B``."""
+
+    def __init__(self, A, B):
+        if A.shape[1] != B.shape[0]:
+            raise ValueError(f"shape mismatch {A.shape} @ {B.shape}")
+        self.A, self.B = A, B
+        self.shape = (A.shape[0], B.shape[1])
+        self.dtype, self.device = _common((A, B))
+
+    def matvec(self, x):
+        return self.A.matvec(self.B.matvec(x))
+
+    def rmatvec(self, y):
+        return self.B.rmatvec(self.A.rmatvec(y))
+
+    def matmat(self, X):
+        return self.A.matmat(self.B.matmat(X))
+
+    def rmatmat(self, Y):
+        return self.B.rmatmat(self.A.rmatmat(Y))
+
+
+class VStackOperator(LinearOperator):
+    """Vertical stack ``[op1; op2; ...]``: regularization stacks.
+
+    Reference analog: ``pylops``/``scipy.sparse.vstack`` use in
+    ``trips/utilities/operators.py:30-45``. The adjoint sums the blocks'
+    adjoints in order."""
+
+    def __init__(self, ops):
+        ops = tuple(ops)
+        n = ops[0].shape[1]
+        for o in ops:
+            if o.shape[1] != n:
+                raise ValueError("inconsistent column counts in VStack")
+        self.ops = ops
+        self.shape = (sum(o.shape[0] for o in ops), n)
+        self.dtype, self.device = _common(ops)
+
+    def _radd(self, Y, apply):
+        out, i = None, 0
+        for o in self.ops:
+            m = o.shape[0]
+            part = apply(o, Y[i : i + m])
+            out = part if out is None else out + part
+            i += m
+        return out
+
+    def matvec(self, x):
+        return torch.cat([o.matvec(x) for o in self.ops])
+
+    def rmatvec(self, y):
+        return self._radd(y, lambda o, part: o.rmatvec(part))
+
+    def matmat(self, X):
+        return torch.cat([o.matmat(X) for o in self.ops], dim=0)
+
+    def rmatmat(self, Y):
+        return self._radd(Y, lambda o, part: o.rmatmat(part))
+
+
+class BlockDiagOperator(LinearOperator):
+    """Block-diagonal ``diag(op_1, ..., op_T)``, one apply per block (the
+    reference's ``pylops.BlockDiag``, ``trips/utilities/io.py:156-158``,
+    ``:420``). When every block is one shared operator,
+    ``BatchedBlockDiagOperator`` applies them all at once."""
+
+    def __init__(self, ops):
+        self.ops = tuple(ops)
+        self.shape = (sum(o.shape[0] for o in self.ops),
+                      sum(o.shape[1] for o in self.ops))
+        self.dtype, self.device = _common(self.ops)
+
+    def _blocks(self, X, side, apply):
+        outs, j = [], 0
+        for o in self.ops:
+            outs.append(apply(o, X[j : j + o.shape[side]]))
+            j += o.shape[side]
+        return torch.cat(outs, dim=0)
+
+    def matvec(self, x):
+        return self._blocks(x, 1, lambda o, part: o.matvec(part))
+
+    def rmatvec(self, y):
+        return self._blocks(y, 0, lambda o, part: o.rmatvec(part))
+
+    def matmat(self, X):
+        return self._blocks(X, 1, lambda o, part: o.matmat(part))
+
+    def rmatmat(self, Y):
+        return self._blocks(Y, 0, lambda o, part: o.rmatmat(part))
+
+
+class FunctionOperator(LinearOperator):
+    """User-supplied forward/adjoint callables on tensors (API parity with
+    ``pylops.FunctionOperator``, used throughout the reference test
+    problems); ``todense`` applies them to the identity in ``dtype`` on
+    ``device`` (the card unless "cpu" is asked for)."""
+
+    def __init__(self, f, fadj, m, n=None, dtype=torch.float32,
+                 device=DEFAULT):
+        self.f = f
+        self.fadj = fadj
+        self.shape = (m, n if n is not None else m)
+        self.dtype = dtype
+        self.device = resolve(device)
+
+    def matvec(self, x):
+        return torch.reshape(self.f(x), (self.shape[0],))
+
+    def rmatvec(self, y):
+        return torch.reshape(self.fadj(y), (self.shape[1],))
 
 
 def aslinearoperator(A, device=DEFAULT) -> LinearOperator:

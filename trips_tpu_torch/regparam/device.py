@@ -36,7 +36,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core.device import DEFAULT, resolve
+from ..core.device import DEFAULT, resolve, svd
 from ..core.loop import run
 
 BRENT_CHUNK = 72  # Brent steps between two host reads
@@ -265,7 +265,7 @@ def dp_lambda(B, bproj, delta, eta=1.01, device=DEFAULT):
     projected system (L = I)."""
     B, bproj = _tensors(device, B, bproj)
     thresh = (eta * delta) ** 2
-    U, S, _ = torch.linalg.svd(B, full_matrices=True)
+    U, S, _ = svd(B)
     mA, nA = B.shape
     sv2 = torch.cat([S**2, S.new_zeros(max(mA - nA, 0))])
     bhat = U.T @ bproj.reshape(-1)

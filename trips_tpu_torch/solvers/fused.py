@@ -20,8 +20,9 @@ lam is chosen on the device by ``regparam.device``'s searches in filtered
 SVD coordinates ('gcv' | 'dp' | 'l_curve', or a fixed 'scalar'), each a
 loop with one host read per chunk of steps. The iteration loop itself is a
 Python loop over a fixed count and reads nothing back. The K x K and
-m x K algebra stays with ``torch.linalg`` (``qr``, ``svd``, ``solve_ex``);
-``svd`` has no form without a status check, so on the card it may sync
+m x K algebra stays with ``torch.linalg`` (``qr``, ``svd``, ``solve_ex``;
+``svd`` with the driver of ``core.device.svd`` on the card); ``svd`` has
+no form without a status check, so on the card it may sync
 (``chip_smoke.py`` [8] counts the syncs of one iteration). The bases are
 column-contiguous and filled in place: the carry's tensors are updated,
 never copied.
@@ -33,7 +34,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core.device import DEFAULT, check_operators, resolve
+from ..core.device import DEFAULT, check_operators, resolve, svd
 from ..core.linop import BatchedBlockDiagOperator
 from ..krylov import arnoldi, golub_kahan
 from ..krylov.golub_kahan import _basis
@@ -94,11 +95,11 @@ def _filtered_pencil(R_A, R_L, bproj, active):
 
     A singular vector's sign may differ between LAPACK, cuSOLVER and XLA:
     it flips an entry of bhat but not bhat^2 or U bhat, the only uses.
-    ``torch.linalg.svd`` returns descending singular values, as the
+    ``svd`` returns descending singular values, as the
     ``live`` masks assume.
     """
     Anew = _standard_form(R_A, R_L, active)
-    U, S, _ = torch.linalg.svd(Anew, full_matrices=False)
+    U, S, _ = svd(Anew, full_matrices=False)
     bproj = bproj.reshape(-1)
     bhat = U.T @ bproj
     if Anew.shape[0] == Anew.shape[1]:
@@ -107,7 +108,7 @@ def _filtered_pencil(R_A, R_L, bproj, active):
         # SVD's rounding, ~1e-7 ||bproj||^2, which GCV divides by lam^2
         # and which pushes lam up by decades (tomo256x60's fused GKS: lam
         # 1.6e-7 in float64, 0.036 in JAX's float32, 0.5-0.7 from
-        # cuSOLVER's SVD)
+        # cuSOLVER's Jacobi SVD, before ``core.device.svd``)
         return S**2, bhat, bhat.new_zeros(())
     # explicit residual, not ||b||^2 - ||bhat||^2: the difference form is
     # a cancellation of near-equal numbers and noise in float32
@@ -152,8 +153,7 @@ def _dp_lambda_masked(R_A, R_L, bproj, out_norm2, delta, eta, active):
     testzero = out_norm2 - thresh decides attainability, and out_norm2
     does not enter f."""
     thresh = (eta * delta) ** 2
-    U, S, _ = torch.linalg.svd(_standard_form(R_A, R_L, active),
-                               full_matrices=True)
+    U, S, _ = svd(_standard_form(R_A, R_L, active))
     bhat = U.T @ bproj.reshape(-1)
     return _dp_newton_filtered(S**2, bhat, thresh, out_norm2 - thresh)
 
@@ -164,7 +164,7 @@ def _dp_lambda_masked_rect(Bm, bh, delta, eta, k_active):
     discrepancy_principle.py:66-75) is the energy of the coefficients past
     the k_active largest singular values."""
     thresh = (eta * delta) ** 2
-    U, S, _ = torch.linalg.svd(Bm, full_matrices=True)
+    U, S, _ = svd(Bm)
     sv2 = torch.cat([S**2, S.new_zeros(1)])
     bhat = U.T @ bh.reshape(-1)
     live = torch.arange(Bm.shape[1] + 1, device=Bm.device) < k_active

@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.device import svd
 from ..core.linop import IdentityOperator
 from ..krylov import golub_kahan
 from ..regparam.dp import dp_tikhonov_projected
@@ -116,7 +117,7 @@ def GKS(A, b, L, projection_dim=3, n_iter=50, regparam="gcv", x_true=None, **kwa
             # SVD of AV = Qa diag(s) W^T. The reference (GKS.py:46-52,74-76)
             # drops W and applies x = V z in the rotated coordinates; the
             # fix rotates back (y = W z)
-            Qa, s, Wt = torch.linalg.svd(AV, full_matrices=False)
+            Qa, s, Wt = svd(AV, full_matrices=False)
             R_A = np.diag(host(s))
             R_L = np.eye(k)
             QA = Qa
