@@ -106,6 +106,25 @@ run by raising:
    port's float32 formula departs and for fused Hybrid GMRES DP without
    reorthogonalization), TSVD's and TGSVD's k equal to JAX's; each solver's wall and device busy time
    per iteration and idle share; [9]'s seconds.
+10. out-of-core and batched dynamic CT on the problem of 7: each frame a
+   ``BucketedBandedProjector`` built on the host (8 line groups, 3
+   buckets; float32 and int8), streamed by
+   ``StreamedDynamicBandedOperator`` (forced: the pack fits the card):
+   K2, K3 and K1 launched once a frame per apply, ``matvec`` bitwise equal
+   to the frames' resident ``matvec``s with and without the compute
+   stream slowed before each frame, ``rmatvec``/``normal_matvec`` within
+   1e-6 of the resident operator of 7 (float32 also against the host CSR
+   matrix), the peak memory of an apply within the two slots, the output
+   and a slack; walls (CUDA events) of the streamed, resident and
+   frame-alone applies and of the upload alone, the link's GB/s, the
+   upload's hidden share and the host's enqueue of an apply;
+   ``cgls_normal_streamed`` (20 iterations), its final relError held to
+   1e-3 of the JAX package's, its nnz/s, and the device's idle share from
+   a ``telemetry.profile`` trace;
+   ``batched_frame_solve`` (fused MMGKS with GCV, fused GKS with DP;
+   float64 ELL tables), each frame's final relError held to 1e-3 of the
+   JAX package's, walls per frame and iteration, a frame's host syncs
+   and device launches.
 
 The line before the last holds ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -287,6 +306,7 @@ def device_ms(fn, reps, parts=None, sessions=3, warm=True):
     H100); ``parts``, if given, receives that session's milliseconds by
     kernel name. ``warm=False`` skips the warm-up call."""
     import torch
+    from torch.autograd import DeviceType
 
     if warm:
         fn()
@@ -304,8 +324,11 @@ def device_ms(fn, reps, parts=None, sessions=3, warm=True):
                 for _ in range(reps):
                     fn()
                 torch.cuda.synchronize()
+            # device events only: the profiler also credits a kernel that
+            # an aten op launched to the op's own entry
             events = [e for e in prof.key_averages()
-                      if e.self_device_time_total]
+                      if e.self_device_time_total
+                      and e.device_type == DeviceType.CUDA]
             us = sum(e.self_device_time_total for e in events)
             if us > 0:
                 break
@@ -690,7 +713,8 @@ def dynamic_path(dev, card, gen):
               f"({DYN_CGN_ITERS} iterations); card {card}")
     return dict(A=A, ops=ops, launches=launches, max_abs=max_abs,
                 solves=solves, walls=walls, iters=iters, nt=nt, bv=bv,
-                x_true=x_true, dims=(nx, ny, nt))
+                x_true=x_true, dims=(nx, ny, nt), AA=AA, B=B, delta=delta,
+                angles=angles)
 
 
 def dynamic_times(dyn, dev, card, gen):
@@ -1553,6 +1577,373 @@ def deblur_path(dev, card, gen):
           f"per float32 matvec: {op_us!r}); card {card}")
 
 
+# Phase 10: the streamed out-of-core operator and the batched per-frame
+# solve on the dynamic problem of 7. The JAX package's results on the same
+# inputs on the CPU: ``python3 demo_reference.py streamed`` (JAX 0.9.0, x64
+# off, the NumPy matrix builder; each frame a float32
+# BucketedBandedProjector.from_scipy_fan(AA[t], 128, None, angles[t],
+# n_groups=8, n_buckets=3), cgls_normal_streamed from 0 for 20 iterations)
+# and ``python3 demo_reference.py batched`` (x64 on: the frames' float64
+# ELL tables, FirstDerivative2D(128, 128), fused MMGKS with GCV and fused
+# GKS with DP at delta / nt, projection_dim 3, 10 iterations), each
+# frame's final relError.
+STREAMED_ITERS, BATCHED_ITERS = 20, 10
+JAX_STREAMED_RELERR = 0.23306438067066026
+JAX_BATCHED_RELERR = {
+    "mmgks gcv": [
+        0.21291280099094884, 0.2145380284519402, 0.2295817193394661,
+        0.23457358569985987, 0.214777305873512, 0.23028672237295983,
+        0.22976820312255364, 0.22870947939103192, 0.2301333293889392,
+        0.22637217606838608, 0.23177180217946364, 0.230282931583593,
+        0.22822104954602948, 0.20803410478600703, 0.2087698513625462,
+        0.228924323472978, 0.2288977774868922, 0.22969357812695512,
+        0.22826937463308836, 0.23152386803001673, 0.22931945439526347,
+        0.22836087701377783, 0.20948524572422272, 0.21096442674098068,
+        0.21037178454251573, 0.2116026666222667, 0.21445926643885255,
+        0.23723111254146018, 0.2368909113799607, 0.23406196542186541,
+        0.23359445230818285, 0.23474988553482906, 0.2135134020511134],
+    "gks dp": [
+        0.23428223448408803, 0.23575078810576597, 0.23477553313204005,
+        0.23597052388094297, 0.2348697366341416, 0.2341928613284178,
+        0.23226371569592924, 0.23148930222215652, 0.23037723830855147,
+        0.22941205385877247, 0.2319029608485643, 0.2305182990207679,
+        0.23102910820550343, 0.2319089455332122, 0.2318135414899473,
+        0.22969560358995186, 0.22982040870870046, 0.2313833545963429,
+        0.23125472787899728, 0.23221836869170528, 0.23019690795741574,
+        0.2294128579600287, 0.2317289203666281, 0.2335578958678458,
+        0.23223600782753032, 0.2338221072175272, 0.23604130953144106,
+        0.240316337672825, 0.23814838408082425, 0.23972631053619153,
+        0.23761370242165328, 0.23581675276029704, 0.23471016379859633]}
+# Gates: the streamed rmatvec / normal_matvec against the resident
+# operator of 7 (the same float32 sums per frame, K1's and K3's atomics
+# in another order); the CGLS and batched final relErrors against JAX's
+# as in 7; the memory an apply holds (bytes requested, since operator
+# construction): the two slots, the output and STREAM_SLACK_IMAGES float32
+# images of n_pad^2 (a frame's images and sinograms and the resident angle
+# ids, far below one slab).
+STREAM_RTOL, STREAM_GATE, BATCHED_GATE = 1e-6, 1e-3, 1e-3
+STREAM_SLACK_IMAGES = 16
+SLOW_CYCLES = 2_000_000  # torch.cuda._sleep before each frame: ~1 ms
+# the streamed CGLS's Chrome traces (git-ignored)
+TRACE_DIR = Path(__file__).resolve().parent / "trips_tpu_trace" / "streamed"
+
+
+def enqueue_ms(fn, reps=10):
+    """Mean host milliseconds of a call of ``fn()`` until it returns (its
+    device work still running), each call on an idle device."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        ts.append(time.perf_counter() - t)
+        torch.cuda.synchronize()
+    return float(np.mean(ts)) * 1e3
+
+
+def requested_bytes(dev, which):
+    """The caching allocator's "current" or "peak" bytes requested on
+    ``dev`` (its allocated bytes, but before the rounding up to a cached
+    block, which depends on what the cache held)."""
+    import torch
+
+    return torch.cuda.memory_stats(dev)[f"requested_bytes.all.{which}"]
+
+
+def trace_busy_ms(path):
+    """(kernels, copies, either) of a Chrome trace: the milliseconds the
+    union of its device intervals covers."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+
+    def union(cats):
+        iv = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                    if e.get("cat") in cats and "dur" in e)
+        total, end = 0.0, -np.inf
+        for a, b in iv:
+            if b > end:
+                total += b - max(a, end)
+                end = b
+        return total / 1e3
+
+    return (union({"kernel"}), union({"gpu_memcpy", "gpu_memset"}),
+            union({"kernel", "gpu_memcpy", "gpu_memset"}))
+
+
+def streamed_path(dev, card, dyn):
+    """Phase 10, the streamed operator: the frames of 7 packed on the host
+    (float32, int8), streaming forced; launches, bitwise and resident
+    gates, the two-slot memory bound, backpressure, the walls against the
+    upload and compute alone, ``cgls_normal_streamed`` against JAX's.
+    -> K1-K3 launches of the streamed path."""
+    import torch
+
+    from trips_tpu_torch.parallel import (StreamedDynamicBandedOperator,
+                                          cgls_normal_streamed)
+    from trips_tpu_torch.sparse import BucketedBandedProjector
+    from trips_tpu_torch.sparse import banded_kernels as bk
+    from trips_tpu_torch.utils import telemetry
+
+    AA, angles, nt = dyn["AA"], dyn["angles"], dyn["nt"]
+    nx = dyn["dims"][0]
+    bv, xt = dyn["bv"], torch.tensor(dyn["x_true"], dtype=torch.float32,
+                                     device=dev)
+    A64 = dyn["A"].astype(np.float32).astype(np.float64)
+    rng = np.random.default_rng(3)
+    x = torch.tensor(rng.standard_normal(A64.shape[1]), dtype=torch.float32,
+                     device=dev)
+    y = torch.tensor(rng.standard_normal(A64.shape[0]), dtype=torch.float32,
+                     device=dev)
+    x0 = torch.zeros_like(x)
+    launches = {k: 0 for k in bk.launch_counts}
+    hist = {}
+    for kind, dt in (("float32", None), ("int8", "int8")):
+        t0 = time.perf_counter()
+        frames = [BucketedBandedProjector.from_scipy_fan(
+            AA[t], nx, None, angles=angles[t], n_groups=8, n_buckets=3,
+            dtype=dt, device="cpu") for t in range(nt)]
+        t1 = time.perf_counter()
+        twins = [BucketedBandedProjector(
+            op.stacks, op.aidxs, op.is_cols, op.shape, op.nx, op.det_count,
+            op.n_groups, op.nnz, op.n_pad, device=dev) for op in frames]
+        res = dyn["ops"]["bucketed " + kind]
+        cols = np.cumsum([0] + [op.shape[1] for op in frames])
+        rows = np.cumsum([0] + [op.shape[0] for op in frames])
+        parts = {"matvec": (x, cols), "rmatvec": (y, rows),
+                 "normal_matvec": (x, cols)}
+        alone = {fn: (lambda f, v, o: lambda: [
+            getattr(tw, f)(v[o[t]:o[t + 1]]) for t, tw in enumerate(twins)])(
+                fn, *parts[fn]) for fn in parts}
+        Ax_frames = torch.cat(alone["matvec"]())
+        torch.cuda.synchronize()
+        before = requested_bytes(dev, "current")
+        t2 = time.perf_counter()
+        sop = StreamedDynamicBandedOperator(frames, device=dev)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        slabs = sop.slab_bytes
+        # the host cost of one frame's bucket checks and launch arguments
+        # (three kernels), made at construction, off the apply's path
+        op0, tw0 = frames[0], sop._twins[0][0]
+        t4 = time.perf_counter()
+        for name, ids in (("banded_fwd", tw0._aidx),
+                          ("banded_adj", tw0._aidx), ("banded_ata", None)):
+            bk.prepare(name, sop._slots[0], tw0._bks, ids, op0.n_groups)
+        check_us = (time.perf_counter() - t4) * 1e6
+        print(f"[10] {kind}: {nt} host frames packed in {t1 - t0:.2f} s; "
+              f"streamed operator (pinned slabs, slots, twins) in "
+              f"{t3 - t2:.2f} s; slabs {min(slabs)}..{max(slabs)} bytes, "
+              f"{sum(slabs)} per apply; one frame's checks and launch "
+              f"arguments {check_us!r} us on the host")
+        errs = {}
+        for fn, (v, _) in parts.items():
+            bk.reset_launch_counts()
+            got = getattr(sop, fn)(v)
+            torch.cuda.synchronize()
+            per = dict(bk.launch_counts)
+            for k in launches:
+                launches[k] += per[k]
+            want = {"matvec": "banded_fwd", "rmatvec": "banded_adj",
+                    "normal_matvec": "banded_ata"}[fn]
+            check(per == {k: nt if k == want else 0 for k in per},
+                  f"streamed {kind} {fn} launches {per}")
+            if fn == "matvec":
+                check(torch.equal(got, Ax_frames),
+                      f"streamed {kind} matvec differs from the frames'")
+            else:
+                errs[fn] = rel(got, getattr(res, fn)(v))
+                check(errs[fn] <= STREAM_RTOL,
+                      f"streamed {kind} {fn} vs resident {errs[fn]!r}")
+        if kind == "float32":
+            xd, yd = x.double().cpu().numpy(), y.double().cpu().numpy()
+            for fn, v, ref in (("matvec", x, A64 @ xd),
+                               ("rmatvec", y, A64.T @ yd),
+                               ("normal_matvec", x, A64.T @ (A64 @ xd))):
+                e = rel(getattr(sop, fn)(v).cpu(), torch.from_numpy(ref))
+                errs[fn + " vs CSR"] = e
+                check(e <= KERNEL_RTOL, f"streamed {fn} vs CSR {e!r}")
+        print(f"[10] {kind}: launches per apply K2/K3/K1 {nt} each; matvec "
+              f"bitwise the frames' resident matvecs; rel err {errs}")
+        del got
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        sop.normal_matvec(x)
+        torch.cuda.synchronize()
+        peak = requested_bytes(dev, "peak") - before
+        slots = 2 * max(slabs)
+        bound_b = (slots + 4 * x.numel()
+                   + STREAM_SLACK_IMAGES * 4 * frames[0].n_pad ** 2)
+        print(f"[10] {kind}: peak memory of an apply {peak} bytes requested "
+              f"(two slots {slots}, bound {bound_b}, the whole pack "
+              f"{sum(slabs)})")
+        check(slots <= peak <= bound_b, f"streamed {kind} peak {peak}")
+        orig = sop._apply_frame
+
+        def slowed(fn, s, t, v):
+            torch.cuda._sleep(SLOW_CYCLES)
+            return orig(fn, s, t, v)
+
+        sop._apply_frame = slowed
+        check(torch.equal(sop.matvec(x), Ax_frames),
+              f"streamed {kind} matvec differs with the compute slowed")
+        del sop._apply_frame
+        print(f"[10] {kind}: matvec bitwise the same with the compute "
+              f"stream slowed {SLOW_CYCLES} cycles before each frame")
+
+        # walls: streamed, resident, the upload alone, the frames' applies
+        # alone on resident twins
+        def upload_alone():
+            for t in range(nt):
+                sop._slots[t % 2][:slabs[t]].copy_(sop._host[t],
+                                                   non_blocking=True)
+
+        copy_ms = cuda_ms(upload_alone, 10)
+        walls = {}
+        for fn, (v, _) in parts.items():
+            walls[fn] = {
+                "streamed": cuda_ms(lambda: getattr(sop, fn)(v), 10),
+                "resident": cuda_ms(lambda: getattr(res, fn)(v), 10),
+                "alone": cuda_ms(alone[fn], 10)}
+            w = walls[fn]
+            hidden = ((copy_ms + w["alone"] - w["streamed"])
+                      / min(copy_ms, w["alone"]))
+            host = {k: enqueue_ms(f) for k, f in (
+                ("streamed", lambda: getattr(sop, fn)(v)),
+                ("alone", alone[fn]))}
+            print(f"[10] {kind} {fn}: streamed {w['streamed']!r} ms per "
+                  f"apply ({sum(slabs) / w['streamed'] / 1e6!r} GB/s of "
+                  f"upload), resident {w['resident']!r} ms, the {nt} "
+                  f"frames' applies alone {w['alone']!r} ms, the upload "
+                  f"alone {copy_ms!r} ms ({sum(slabs) / copy_ms / 1e6!r} "
+                  f"GB/s pinned H2D); hidden share of the upload {hidden!r}"
+                  f"; the host's enqueue of an apply: streamed "
+                  f"{host['streamed']!r} ms, the frames alone "
+                  f"{host['alone']!r} ms ("
+                  f"{(host['streamed'] - host['alone']) / nt * 1e3!r} us a "
+                  f"frame of the pipeline's own); card {card}")
+        # cgls_normal_streamed: the relError after k = 1..20 iterations
+        # (each a run from 0), the k = 20 run's launches
+        errs_k = []
+        for k in range(1, STREAMED_ITERS + 1):
+            if k == STREAMED_ITERS:
+                bk.reset_launch_counts()
+            xs, kk = cgls_normal_streamed(sop, bv, x0, k)
+            check(kk == k and bool(torch.isfinite(xs).all()),
+                  f"streamed cgls {kind} k {kk}")
+            errs_k.append(float((xs - xt).norm() / xt.norm()))
+        got = dict(bk.launch_counts)
+        check(got == {"banded_fwd": 0, "banded_adj": nt,
+                      "banded_ata": nt * (STREAMED_ITERS + 1)},
+              f"streamed cgls {kind} launches {got}")
+        for k in launches:
+            launches[k] += got[k]
+        hist[kind] = errs_k
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        cgls_normal_streamed(sop, bv, x0, STREAMED_ITERS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        # a profiled run of 5 iterations against its own wall
+        cgls_normal_streamed(sop, bv, x0, 5)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        cgls_normal_streamed(sop, bv, x0, 5)
+        torch.cuda.synchronize()
+        wall5 = (time.perf_counter() - t) * 1e3
+        logdir = TRACE_DIR / kind
+        with telemetry.profile(str(logdir), device=dev) as prof:
+            cgls_normal_streamed(sop, bv, x0, 5)
+        busy = telemetry.device_busy_ms(prof)
+        kern, cp, either = trace_busy_ms(logdir / "trace.json")
+        print(f"[10] cgls_normal_streamed {kind}: relError final "
+              f"{errs_k[-1]!r}, min {min(errs_k)!r} at iteration "
+              f"{int(np.argmin(errs_k)) + 1}; launches {got}; wall "
+              f"{wall / STREAMED_ITERS * 1e3!r} ms/iter, "
+              f"{STREAMED_ITERS * 2 * sop.nnz / wall!r} nnz/s; 5 "
+              f"iterations: wall {wall5!r} ms, device kernels {kern!r} ms, "
+              f"copies {cp!r} ms, either {either!r} ms (device events "
+              f"summed {busy!r}), idle share {1 - either / wall5!r}, compute "
+              f"idle share {1 - kern / wall5!r}; card {card}")
+        del sop, twins
+    f32 = hist["float32"][-1]
+    print(f"[10] cgls_normal_streamed float32 final relError {f32!r} (JAX "
+          f"CPU {JAX_STREAMED_RELERR!r}, gate {STREAM_GATE}); min float32 "
+          f"{min(hist['float32'])!r}, int8 {min(hist['int8'])!r}")
+    check(abs(f32 - JAX_STREAMED_RELERR) <= STREAM_GATE,
+          f"streamed cgls final relError {f32!r}")
+    check(abs(min(hist["int8"]) - min(hist["float32"])) <= INT8_ATOL,
+          "streamed int8 min relError gap")
+    return launches
+
+
+def batched_path(dev, card, dyn):
+    """Phase 10, the batched per-frame solve: fused MMGKS with GCV and
+    fused GKS with DP over the frames' float64 ELL tables, each frame's
+    final relError against JAX's; walls per frame and iteration, a
+    frame's host reads, beside 7's static per-frame MMGKS."""
+    import torch
+    from torch.autograd import DeviceType
+
+    from trips_tpu_torch.core import loop
+    from trips_tpu_torch.operators import FirstDerivative2D
+    from trips_tpu_torch.parallel import batched_frame_solve
+    from trips_tpu_torch.sparse import banded_kernels as bk
+
+    AA, B, nt = dyn["AA"], dyn["B"], dyn["nt"]
+    nx, ny, _ = dyn["dims"]
+    xt = dyn["x_true"].reshape(nt, -1)
+    L = FirstDerivative2D(nx, ny, device=dev)
+    bk.reset_launch_counts()
+    for name, kw in (("mmgks gcv", dict(solver="mmgks")),
+                     ("gks dp", dict(solver="gks", regparam_mode="dp",
+                                     delta=dyn["delta"] / nt))):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        X = batched_frame_solve(AA, B, L, n_iter=BATCHED_ITERS, device=dev,
+                                **kw)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) / nt
+        check(tuple(X.shape) == xt.shape and X.dtype == torch.float64
+              and bool(torch.isfinite(X).all()), f"batched {name} X")
+        Xh = X.cpu().numpy()
+        errs = [float(np.linalg.norm(Xh[f] - xt[f]) / np.linalg.norm(xt[f]))
+                for f in range(nt)]
+        gap = max(abs(e - r) for e, r in zip(errs, JAX_BATCHED_RELERR[name]))
+        # one frame's host syncs, the loops' host reads, and its device
+        # launches (kernels, copies, memsets)
+        def one_frame():
+            batched_frame_solve(AA[:1], B[:1], L, n_iter=BATCHED_ITERS,
+                                device=dev, **kw)
+
+        loop.TRACE = []
+        syncs = count_syncs(one_frame)
+        reads = sum(r for _, r, _ in loop.TRACE)
+        loop.TRACE = None
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            one_frame()
+            torch.cuda.synchronize()
+        launched = sum(e.count for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA)
+        check(launched > 0, f"batched {name}: no device launch recorded")
+        print(f"[10] batched {name}: {nt} frames, relError per frame "
+              f"{min(errs)!r}..{max(errs)!r}, largest gap to JAX CPU "
+              f"{gap!r} (gate {BATCHED_GATE}); wall {wall * 1e3!r} ms per "
+              f"frame, {wall / BATCHED_ITERS * 1e3!r} ms per iteration; "
+              f"host syncs per frame {sum(syncs.values())} (the search "
+              f"loops' reads {reads}); device launches per frame "
+              f"{launched}; 7's static per-frame MMGKS "
+              f"{dyn['walls']['static per-frame MMGKS']!r} ms per frame "
+              f"iteration; card {card}")
+        check(gap <= BATCHED_GATE, f"batched {name} relError gap {gap!r}")
+    launched = dict(bk.launch_counts)
+    check(not any(launched.values()), f"K1-K3 launched in batched: "
+          f"{launched}")
+
+
 def main():
     import torch
 
@@ -2278,6 +2669,14 @@ def main():
     fused_times(fused, card, host_walls)
     # ---- 9. deblurring: operators, the demos' solvers, profiles ---------
     deblur_path(dev, card, gen)
+    # ---- 10. the streamed operator and the batched solve ----------------
+    t0 = time.perf_counter()
+    streamed = streamed_path(dev, card, dyn)
+    batched_path(dev, card, dyn)
+    print(f"[10] took {time.perf_counter() - t0:.1f} s; launches in the "
+          f"streamed path: {streamed}; card {card}")
+    check(all(v > 0 for v in streamed.values()),
+          "a kernel never launched in the streamed path")
     static_fused = {k: v for k, v in fused["launches"].items()
                     if "dynamic" not in k and "checkpointed" not in k}
     dynamic_fused = {k: v for k, v in fused["launches"].items()
@@ -2288,6 +2687,9 @@ def main():
         if byp is not None:
             entry["fused_launches"] = {k: v[entry["name"].removesuffix(
                 "_frames")] for k, v in byp.items()}
+        if entry["name"].endswith("_frames"):
+            entry["streamed_launches"] = streamed[
+                entry["name"].removesuffix("_frames")]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

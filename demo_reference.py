@@ -16,6 +16,10 @@ the gates of ``chip_smoke.py`` [6] and [7].
     python3 demo_reference.py deblur64 # the same solves in float64
     python3 demo_reference.py deblur_probe  # trips_tpu_torch on the card:
                                             # where its float32 solves part
+    python3 demo_reference.py streamed # trips_tpu, the streamed dynamic
+                                       # operator's CGLS, x64 off
+    python3 demo_reference.py batched  # trips_tpu, batched_frame_solve
+                                       # in float64
 
 Both run ``demos/demo_tomography.py --large`` (grains phantom, 256x256, 60
 views, Gaussian noise 0.001 after ``np.random.seed(0)``) with 30
@@ -84,6 +88,17 @@ with the projected problems' ``svd``, ``qr`` and ``solve_ex`` routed one
 at a time elsewhere, on ``b`` perturbed by one float32 unit, and the GCV
 curve of the last iteration; fused Hybrid GMRES with DP with and without
 reorthogonalization (``run_deblur_probe``).
+
+The ``streamed`` and ``batched`` modes run ``trips_tpu``'s ``parallel``
+package on the CPU on the inputs of ``chip_smoke.py`` [10], the dynamic
+problem of ``dynamic`` (the NumPy matrix builder). ``streamed``: x64 off,
+each frame a float32 ``BucketedBandedProjector`` (8 line groups, 3
+buckets), ``cgls_normal_streamed`` over the
+``StreamedDynamicBandedOperator`` from ``x0 = 0`` for 20 iterations; it
+prints the final relError. ``batched``: x64 on, ``batched_frame_solve``
+over the frames' float64 matrices with ``FirstDerivative2D``: fused MMGKS
+with GCV (``projection_dim=3``, 10 iterations) and fused GKS with DP at
+``delta / nt``; it prints each frame's final relError.
 """
 import contextlib
 import os
@@ -693,14 +708,78 @@ def run_deblur_probe():
                   flush=True)
 
 
+STREAMED_ITERS, BATCHED_ITERS = 20, 10
+
+
+def run_streamed():
+    os.environ["TRIPS_TPU_NO_NATIVE"] = "1"
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    sys.path.insert(0, str(ROOT))
+    import jax
+    import jax.numpy as jnp
+
+    from trips_tpu.parallel import (StreamedDynamicBandedOperator,
+                                    cgls_normal_streamed)
+    from trips_tpu.problems import generate_synthetic_dynamic
+    from trips_tpu.sparse import BucketedBandedProjector
+
+    print("x64", jax.config.jax_enable_x64, jax.__version__, flush=True)
+    (A, b, AA, B, nx, ny, nt, delta, x_true,
+     angles) = generate_synthetic_dynamic(**DYN, return_angles=True)
+    print("||b||", repr(float(np.linalg.norm(b))), flush=True)
+    t = time.time()
+    ops = [BucketedBandedProjector.from_scipy_fan(
+        AA[f], nx, None, angles=angles[f], n_groups=8, n_buckets=3)
+        for f in range(nt)]
+    sop = StreamedDynamicBandedOperator(ops)
+    print(f"packs {time.time() - t:.1f} s", flush=True)
+    t = time.time()
+    x, k = cgls_normal_streamed(sop, jnp.asarray(b, jnp.float32),
+                                jnp.zeros(sop.shape[1], jnp.float32),
+                                STREAMED_ITERS)
+    x = np.asarray(x, np.float64)
+    print("cgls_normal_streamed float32 k", k, "final relError",
+          repr(float(np.linalg.norm(x - x_true) / np.linalg.norm(x_true))),
+          f"{time.time() - t:.1f} s", flush=True)
+
+
+def run_batched():
+    os.environ["TRIPS_TPU_NO_NATIVE"] = "1"
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    sys.path.insert(0, str(ROOT))
+    import jax
+
+    jax.config.update("jax_enable_x64", True)
+    from trips_tpu.operators import FirstDerivative2D
+    from trips_tpu.parallel import batched_frame_solve
+    from trips_tpu.problems import generate_synthetic_dynamic
+
+    print("x64", jax.config.jax_enable_x64, jax.__version__, flush=True)
+    (A, b, AA, B, nx, ny, nt, delta, x_true,
+     angles) = generate_synthetic_dynamic(**DYN, return_angles=True)
+    xt = x_true.reshape(nt, -1)
+    L = FirstDerivative2D(nx, ny)
+    for name, kw in (("mmgks gcv", dict(solver="mmgks")),
+                     ("gks dp", dict(solver="gks", regparam_mode="dp",
+                                     delta=delta / nt))):
+        t = time.time()
+        X = np.asarray(batched_frame_solve(AA, B, L, n_iter=BATCHED_ITERS,
+                                           **kw))
+        errs = [float(np.linalg.norm(X[f] - xt[f]) / np.linalg.norm(xt[f]))
+                for f in range(nt)]
+        print(f"batched {name} per-frame final relError", repr(errs),
+              f"{time.time() - t:.1f} s", flush=True)
+
+
 if __name__ == "__main__":
     modes = {"jax": run_jax, "torch": run_torch, "dynamic": run_dynamic,
              "fused": run_fused, "fused64": lambda: run_fused(x64=True),
              "fused_torch": run_fused_torch, "deblur": run_deblur,
              "deblur64": lambda: run_deblur(x64=True),
-             "deblur_probe": run_deblur_probe}
+             "deblur_probe": run_deblur_probe, "streamed": run_streamed,
+             "batched": run_batched}
     if len(sys.argv) != 2 or sys.argv[1] not in modes:
         sys.exit(f"usage: {sys.argv[0]} "
                  "jax|torch|dynamic|fused|fused64|fused_torch|deblur|"
-                 "deblur64|deblur_probe")
+                 "deblur64|deblur_probe|streamed|batched")
     modes[sys.argv[1]]()

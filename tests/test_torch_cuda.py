@@ -889,3 +889,116 @@ def test_fused_gcv_deblur1d_matches_cpu(cuda, solver):
         errs.append(float(np.linalg.norm(x.double().cpu().numpy() - x_true)
                           / np.linalg.norm(x_true)))
     assert abs(errs[0] - errs[1]) <= 1e-3, errs
+
+
+# ---- the streamed operator, the batched solve ----------------------------
+def _requested(dev, which):
+    return torch.cuda.memory_stats(dev)[f"requested_bytes.all.{which}"]
+
+
+def _frames(problem, dtype):
+    """The frames' host packs (8 line groups, 3 buckets)."""
+    from trips_tpu_torch.sparse import BucketedBandedProjector
+
+    A, b, AA, B, nx, ny, nt, delta, x, al = problem
+    return [BucketedBandedProjector.from_scipy_fan(
+        AA[t], nx, None, angles=al[t], n_groups=8, n_buckets=3, dtype=dtype,
+        device="cpu") for t in range(nt)]
+
+
+@pytest.mark.parametrize("dtype", [None, "int8"])
+def test_streamed_matches_resident_on_card(cuda, dynamic32, dtype):
+    """The streamed applies launch K2, K3 and K1 once per frame, the
+    ``matvec`` bitwise equal to the frames' resident ``matvec``s (K2 is
+    bitwise repeatable), with and without the compute stream slowed
+    before each frame (the side stream must wait for a slot's frame before
+    overwriting it); ``rmatvec`` and ``normal_matvec`` within 1e-6 of the
+    resident bucketed dynamic operator (K1 and K3 add with atomics); the
+    memory an apply holds at most the two slots, the output and a
+    slack."""
+    from trips_tpu_torch.parallel import StreamedDynamicBandedOperator
+    from trips_tpu_torch.sparse import BucketedBandedProjector
+
+    nt = dynamic32[6]
+    frames = _frames(dynamic32, dtype)
+    res = _dyn(dynamic32, "bucketed", dtype, cuda)
+    twins = [BucketedBandedProjector(
+        op.stacks, op.aidxs, op.is_cols, op.shape, op.nx, op.det_count,
+        op.n_groups, op.nnz, op.n_pad, device=cuda) for op in frames]
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(res.shape[1], device=cuda, generator=g)
+    y = torch.randn(res.shape[0], device=cuda, generator=g)
+    cols = np.cumsum([0] + [op.shape[1] for op in frames])
+    Ax_frames = torch.cat([tw.matvec(x[cols[t]:cols[t + 1]])
+                           for t, tw in enumerate(twins)])
+    torch.cuda.synchronize()
+    before = _requested(cuda, "current")
+    sop = StreamedDynamicBandedOperator(frames, device=cuda)
+    for fn, v, want in (("matvec", x, "banded_fwd"),
+                        ("rmatvec", y, "banded_adj"),
+                        ("normal_matvec", x, "banded_ata")):
+        bk.reset_launch_counts()
+        got = getattr(sop, fn)(v)
+        torch.cuda.synchronize()
+        assert bk.launch_counts == {k: nt if k == want else 0
+                                    for k in bk.launch_counts}, fn
+        if fn == "matvec":
+            assert torch.equal(got, Ax_frames)
+        else:
+            assert _rel(got, getattr(res, fn)(v)) <= 1e-6, fn
+    # the two-slot bound, in bytes requested (the allocator's rounding up
+    # to a cached block depends on what its cache held): the slots
+    # (allocated at construction, the angle ids resident beside them: a
+    # few hundred bytes), the output, and a slack of 16 float32 images for
+    # a frame's images and sinograms
+    del got
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    sop.normal_matvec(x)
+    torch.cuda.synchronize()
+    peak = _requested(cuda, "peak") - before
+    slots = 2 * max(sop.slab_bytes)
+    bound = slots + 4 * x.numel() + 16 * 4 * frames[0].n_pad ** 2
+    assert slots <= peak <= bound < sum(sop.slab_bytes)
+    # backpressure: the compute stream slowed before each frame
+    orig = sop._apply_frame
+
+    def slowed(fn, s, t, v):
+        torch.cuda._sleep(2_000_000)
+        return orig(fn, s, t, v)
+
+    sop._apply_frame = slowed
+    assert torch.equal(sop.matvec(x), Ax_frames)
+
+
+def test_streamed_refuses_card_frames(cuda, dynamic32):
+    from trips_tpu_torch.parallel import StreamedDynamicBandedOperator
+    from trips_tpu_torch.sparse import BucketedBandedProjector
+
+    A, b, AA, B, nx, ny, nt, delta, x, al = dynamic32
+    op = BucketedBandedProjector.from_scipy_fan(AA[0], nx, None,
+                                                angles=al[0], n_groups=8,
+                                                device=cuda)
+    with pytest.raises(ValueError, match="on the host"):
+        StreamedDynamicBandedOperator([op], device=cuda)
+
+
+@pytest.mark.parametrize("solver", ["mmgks", "gks"])
+def test_batched_frame_solve_matches_cpu(cuda, solver):
+    """``batched_frame_solve`` in float64 on the card (ELL gathers, the
+    fused solvers) against the CPU, frame by frame, to 1e-6."""
+    from trips_tpu_torch.operators import FirstDerivative2D
+    from trips_tpu_torch.parallel import batched_frame_solve
+    from trips_tpu_torch.problems import generate_synthetic_dynamic
+
+    A, b, AA, B, nx, ny, nt, delta, x_true = generate_synthetic_dynamic(
+        nx=16, nt=4, views=10, noise_level=0.01)
+    kw = {} if solver == "mmgks" else dict(regparam_mode="dp",
+                                           delta=delta / nt)
+    X = {dev: batched_frame_solve(AA, B, FirstDerivative2D(nx, ny,
+                                                           device=dev),
+                                  solver=solver, device=dev, **kw)
+         for dev in (cuda, "cpu")}
+    assert X[cuda].device.type == "cuda" and X[cuda].dtype == torch.float64
+    for f in range(nt):
+        assert _rel(X[cuda][f].cpu(), X["cpu"][f]) <= 1e-6, f

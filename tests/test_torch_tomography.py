@@ -100,17 +100,20 @@ def test_cgls_relerror_history_matches_jax():
                                atol=1e-3)
 
 
-def test_unsupported_geometry_and_images_raise():
+def test_unsupported_geometry_and_images_raise(tmp_path, monkeypatch):
     """A geometry without the pack's metadata is no longer refused: it
     falls back to the CSR operator, as the JAX package falls back to ELL
-    (``tests/test_torch_csr.py``). The image phantoms still raise."""
+    (``tests/test_torch_csr.py``). The image phantoms load
+    ./data/image_data/<name>.mat (``tests/test_torch_support.py``) and
+    raise where the file is missing: nothing downloads."""
     from trips_tpu_torch.sparse import CsrOperator
 
     A = tp.fan_beam_matrix(8, views=4)
     assert isinstance(tp.device_sparse_operator(A, nx=None,
                                                 angles=np.zeros(4),
                                                 device="cpu"), CsrOperator)
-    with pytest.raises(NotImplementedError):
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(FileNotFoundError, match="SL60.mat not found"):
         tp.Tomography(device="cpu").gen_true("SL60", nx=8, ny=8)
 
 
@@ -121,7 +124,9 @@ def test_import_loads_no_jax():
             "trips_tpu_torch.core, trips_tpu_torch.regparam, "
             "trips_tpu_torch.utils, trips_tpu_torch.problems.dynamic, "
             "trips_tpu_torch.sparse.dynamic_banded, "
-            "trips_tpu_torch.sparse.csr, trips_tpu_torch.sparse.banded\n"
+            "trips_tpu_torch.sparse.csr, trips_tpu_torch.sparse.banded, "
+            "trips_tpu_torch.parallel, trips_tpu_torch.config, "
+            "trips_tpu_torch.utils.telemetry, trips_tpu_torch.sparse.ell\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'trips_tpu.'))]\n"
             "assert not bad, bad\n")

@@ -12,13 +12,15 @@ all-on-device solvers (fused GKS, MMGKS and hybrids with lam chosen on the
 device, LSQR, checkpointed runs), and deblurring (the 1D and 2D blurs,
 the framelet operator, the deblurring problems, the direct Tikhonov, TSVD
 and TGSVD solvers with the GSVD, the linear-operator combinators, the
-validation helpers). The JAX package ``trips_tpu`` is the
+validation helpers), out-of-core and batched dynamic CT (``parallel``: the
+streamed operator over the same kernels, the per-frame batched solve),
+``config`` and ``utils.telemetry``. The JAX package ``trips_tpu`` is the
 reference each part is tested against.
 """
 import torch
 
-from . import (core, krylov, operators, problems, regparam,  # noqa: F401
-               solvers, sparse, utils)
+from . import (config, core, krylov, operators, parallel,  # noqa: F401
+               problems, regparam, solvers, sparse, utils)
 from .core import LinearOperator, aslinearoperator  # noqa: F401
 
 __version__ = "0.1.0"

@@ -10,12 +10,15 @@ host CSR matrix, or the CSR matrix itself where the pack does not apply.
 """
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import scipy.linalg as sla
 import torch
 
 from ..core.device import DEFAULT, resolve
 from ..sparse import BucketedBandedProjector, CsrOperator
+from ..utils.images import image_to_new_size, load_image_mat
 from . import phantoms as phantom
 from .projector import fan_beam_matrix
 
@@ -110,9 +113,13 @@ class Tomography:
         elif test_problem == "shepp_logan":
             x = phantom.shepp_logan(N)
         elif test_problem in ("SL60", "SL90", "head"):
-            raise NotImplementedError(
-                f"{test_problem!r} needs the image loaders, which the torch "
-                "package does not have yet")
+            # ./data/image_data/<name>.mat, resized to (nx, ny) where it
+            # differs; never downloaded
+            img = load_image_mat(test_problem)
+            if img.shape != (self.nx, self.ny):
+                img = image_to_new_size(img, (self.nx, self.ny))
+                img[np.isnan(img)] = 0
+            x = img
         else:
             raise TypeError(
                 "You must enter a valid test problem! Options are: grains, "
@@ -136,6 +143,24 @@ class Tomography:
         self.q = int(b.shape[0] / self.views)
         return OP, b, self.p, self.q, A
 
+    def gen_saved_data(self, dataset):
+        """Pre-saved A/b .mat bundles ('SL60'/'SL90'/'head' + CT60, CT90,
+        CT200) from ./data/image_data; never downloaded
+        (Tomography.py:170-201)."""
+        mapping = {60: ("SL60", "CT60"), 90: ("SL90", "CT90"),
+                   "head": ("head", "CT200")}
+        test_problem, otherdata = mapping[dataset]
+        import scipy.io as spio
+
+        data = spio.loadmat(f"./data/image_data/{test_problem}.mat")
+        CT = spio.loadmat(f"./data/image_data/{otherdata}.mat")
+        A, phi, s = CT["A"], CT["phi"], CT["s"]
+        x_true = data["x_true"]
+        b = data["b"].T
+        self.q = phi.shape[1]
+        self.p = s.shape[1]
+        return A, x_true, b
+
     def add_noise(self, b_true, opt, noise_level, rng=None):
         """Noise from NumPy's global generator (the reference's semantics:
         seed with ``np.random.seed``), or from ``rng``, a
@@ -155,3 +180,18 @@ class Tomography:
         sig = noise_level * np.linalg.norm(b_true) / np.linalg.norm(e)
         b_meas = b_true + sig * e
         return b_meas.reshape(self.p, self.q), sla.norm(sig * e)
+
+    def plot_rec(self, img, save_imgs=False, save_path="./saveImagesTomo"):
+        """Show (and with ``save_imgs`` save to ``save_path/rec.png``) a
+        reconstruction as an nx x ny image; matplotlib is imported here."""
+        import matplotlib.pyplot as plt
+
+        if isinstance(img, torch.Tensor):
+            img = img.detach().cpu().numpy()
+        plt.set_cmap("inferno")
+        if save_imgs and not os.path.exists(save_path):
+            os.makedirs(save_path)
+        plt.imshow(np.asarray(img).reshape(self.nx, self.ny))
+        plt.axis("off")
+        if save_imgs:
+            plt.savefig(save_path + "/rec.png", bbox_inches="tight")

@@ -3,6 +3,8 @@ from .banded_buckets import BucketedBandedProjector
 from .csr import CsrOperator
 from .dynamic_banded import (BucketedDynamicBandedOperator,
                              DynamicBandedOperator)
+from .ell import EllOperator
 
 __all__ = ["CsrOperator", "BandedProjector", "BucketedBandedProjector",
-           "DynamicBandedOperator", "BucketedDynamicBandedOperator"]
+           "DynamicBandedOperator", "BucketedDynamicBandedOperator",
+           "EllOperator"]

@@ -320,23 +320,17 @@ def clear_plans():
     _PREPARED.clear()
 
 
-def _prepare(name, inp, buckets, aidx, n_groups):
+def prepare(name, inp, buckets, aidx, n_groups):
     """Check the buckets (``_check_buckets``) and make their launch
-    arguments: (n, p_pad, the buckets' frame count or None, [(nb, ctypes
-    arrays, plan)]), one entry per launch of at most the library's
-    ``trips_banded_max_buckets``. The operator hands over the same buckets
-    every apply: their check and arguments are kept, without keeping the
-    tensors alive, and reused while the same tensors come again."""
+    arguments for kernel ``name`` (``banded_fwd``, ``banded_adj`` or
+    ``banded_ata``; ``aidx`` None for K1) on ``inp``'s device: (n, p_pad,
+    the buckets' frame count or None, [(nb, ctypes arrays, plan)]), one
+    entry per launch of at most the library's
+    ``trips_banded_max_buckets``. The arguments hold the tensors' addresses,
+    not the tensors: a caller that keeps them (the wrappers' ``prepared``)
+    keeps the tensors alive and unmoved beside them."""
     from .. import _build
 
-    tensors = [t for b in buckets for t in b[:4] if t is not None]
-    tensors += list(aidx) if aidx is not None else []
-    key = (name, id(buckets), id(aidx), tuple(bool(b[4]) for b in buckets),
-           n_groups, inp.device)
-    hit = _PREPARED.get(key)
-    if hit is not None and len(hit[0]) == len(tensors) and all(
-            r() is t for r, t in zip(hit[0], tensors)):
-        return hit[1]
     n, p_pad, nf = _check_buckets(inp, buckets, aidx, n_groups)
     most = _build.load().trips_banded_max_buckets()
     launches = []
@@ -355,7 +349,22 @@ def _prepare(name, inp, buckets, aidx, n_groups):
         arrs = ([(ctypes.c_void_p * len(part))(*v) for v in cols[:5]]
                 + [(ctypes.c_int * len(part))(*v) for v in cols[5:]])
         launches.append((len(part), arrs, pl))
-    out = (n, p_pad, nf, launches)
+    return n, p_pad, nf, launches
+
+
+def _prepare(name, inp, buckets, aidx, n_groups):
+    """``prepare``, kept: the operator hands over the same buckets every
+    apply, so their check and arguments are kept, without keeping the
+    tensors alive, and reused while the same tensors come again."""
+    tensors = [t for b in buckets for t in b[:4] if t is not None]
+    tensors += list(aidx) if aidx is not None else []
+    key = (name, id(buckets), id(aidx), tuple(bool(b[4]) for b in buckets),
+           n_groups, inp.device)
+    hit = _PREPARED.get(key)
+    if hit is not None and len(hit[0]) == len(tensors) and all(
+            r() is t for r, t in zip(hit[0], tensors)):
+        return hit[1]
+    out = prepare(name, inp, buckets, aidx, n_groups)
     if len(_PREPARED) >= 64:
         del _PREPARED[next(iter(_PREPARED))]
     _PREPARED[key] = ([weakref.ref(t) for t in tensors], out)
@@ -406,7 +415,8 @@ def _check_images(X, XT, buckets, n, nf_pack):
     return nf, XT
 
 
-def banded_fwd_buckets(X, XT, buckets, aidx, p, n_groups, rows=None):
+def banded_fwd_buckets(X, XT, buckets, aidx, p, n_groups, rows=None,
+                       prepared=None):
     """K2 over the buckets of one pack in one launch: ``buckets`` holds
     ``(W, S, Pm, scales, cols)``, ``aidx`` each bucket's int32 angle ids;
     a bucket with ``cols`` drives ``XT`` (the transposed image,
@@ -416,12 +426,14 @@ def banded_fwd_buckets(X, XT, buckets, aidx, p, n_groups, rows=None):
     ``d < p`` of bucket k's angle a. ``rows`` defaults to the angles of a
     frame over all buckets; the ids of a frame must hold ``0 .. rows -
     1``, each once (the operators' packs have them so), or rows are left
-    unwritten."""
+    unwritten. ``prepared``: ``prepare("banded_fwd", ...)`` of these
+    buckets, made once by a caller that keeps them (else the wrapper's
+    kept arguments, ``_prepare``)."""
     if X.device.type == "cpu":
         return banded_fwd_buckets_ref(X, XT, buckets, aidx, p, n_groups,
                                       rows)
-    n, p_pad, nf_pack, launches = _prepare("banded_fwd", X, buckets, aidx,
-                                           n_groups)
+    n, p_pad, nf_pack, launches = prepared or _prepare(
+        "banded_fwd", X, buckets, aidx, n_groups)
     nf, XT = _check_images(X, XT, buckets, n, nf_pack)
     if not 1 <= p <= p_pad:
         raise ValueError(f"p={p} must lie in [1, p_pad={p_pad}]")
@@ -432,17 +444,18 @@ def banded_fwd_buckets(X, XT, buckets, aidx, p, n_groups, rows=None):
                    rows, n, p_pad, n_groups, nf)
 
 
-def banded_adj_buckets(Y, buckets, aidx, n_groups):
+def banded_adj_buckets(Y, buckets, aidx, n_groups, prepared=None):
     """K3 over the buckets of one pack in one launch: ``Y (rows, p)``
     float32 sinogram, or frames ``(nf, rows, p)``, ``buckets`` and
     ``aidx`` as for ``banded_fwd_buckets``; bucket k's angle a reads row
     ``aidx[k][a]`` (zero beyond ``p``), a bucket with ``cols`` adds its
     image transposed. -> ``(n, n)`` float32 (``(nf, n, n)``), the sum of
-    ``banded_adj`` over the buckets."""
+    ``banded_adj`` over the buckets. ``prepared`` as for
+    ``banded_fwd_buckets``."""
     if Y.device.type == "cpu":
         return banded_adj_buckets_ref(Y, buckets, aidx, n_groups)
-    n, p_pad, nf_pack, launches = _prepare("banded_adj", Y, buckets, aidx,
-                                           n_groups)
+    n, p_pad, nf_pack, launches = prepared or _prepare(
+        "banded_adj", Y, buckets, aidx, n_groups)
     nf = _frame_count(Y, 2, nf_pack, "Y")
     if not 1 <= Y.shape[-1] <= p_pad:
         raise ValueError(f"Y must be ([nf,] rows, p) with p <= p_pad="
@@ -454,16 +467,17 @@ def banded_adj_buckets(Y, buckets, aidx, n_groups):
                    Y.shape[-1], Y.shape[-2], n, p_pad, n_groups, nf)
 
 
-def banded_ata_buckets(X, XT, buckets, n_groups):
+def banded_ata_buckets(X, XT, buckets, n_groups, prepared=None):
     """K1 over the buckets of one pack in one launch: ``buckets`` holds
     ``(W, S, Pm, scales, cols)``; a bucket with ``cols`` drives ``XT`` (the
     transposed image, contiguous) and its image is transposed before the
     sum. ``X`` is ``(n, n)`` or frames ``(nf, n, n)``. -> float32 of
-    ``X``'s shape, the sum of ``banded_ata`` over the buckets."""
+    ``X``'s shape, the sum of ``banded_ata`` over the buckets.
+    ``prepared`` as for ``banded_fwd_buckets``."""
     if X.device.type == "cpu":
         return banded_ata_buckets_ref(X, XT, buckets, n_groups)
-    n, p_pad, nf_pack, launches = _prepare("banded_ata", X, buckets, None,
-                                           n_groups)
+    n, p_pad, nf_pack, launches = prepared or _prepare(
+        "banded_ata", X, buckets, None, n_groups)
     nf, XT = _check_images(X, XT, buckets, n, nf_pack)
     out = torch.zeros(X.shape, dtype=torch.float32, device=X.device)
     return _launch("banded_ata", X, XT, out, buckets[0][0].dtype, launches,
