@@ -125,6 +125,25 @@ run by raising:
    float64 ELL tables), each frame's final relError held to 1e-3 of the
    JAX package's, walls per frame and iteration, a frame's host syncs
    and device launches.
+11. the sharded operators of ``parallel/`` (whole vectors on every rank,
+   one all_reduce per apply): [11a] world size 1 over NCCL in this
+   process: tomo256x60's bucketed packs (float32, bfloat16, int8) and
+   flat pack, the dynamic bucketed and flat float32 packs of 7, the ELL
+   and BSR-as-CSR operators on tomo256x60's matrix and on the dynamic
+   frames; each banded ``matvec`` bitwise the unsharded operator's,
+   ``rmatvec``/``normal_matvec`` within 1e-5, ELL/BSR within 1e-5 of the
+   host product, one launch and one all_reduce per apply; the applies'
+   times beside the unsharded ones (CUDA events, device time, host
+   enqueue), the NCCL all_reduce alone; ``cgls_normal`` on the sharded
+   float32 packs held as 3 and 10 hold it. [11b] two ranks on the one
+   card over gloo (NCCL refuses two ranks on one device), spawned after
+   the kernels are built: tomo256x60's float32 and int8 packs on
+   ``angles`` 2, the dynamic float32 pack on (time 1, angles 2), rebuilt
+   by each rank from NumPy stacks and sharded to the card; the same
+   gates, ``cgls_normal`` on the float32 packs, the ranks' final iterates
+   bitwise equal; each rank's K1-K3 device time over its angles beside
+   the whole operator's, the gloo all_reduce's wall (staged through the
+   host). A rank that fails or outlives 300 s fails the run.
 
 The line before the last holds ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1944,6 +1963,514 @@ def batched_path(dev, card, dyn):
           f"{launched}")
 
 
+# Phase 11: the sharded operators of parallel/ (whole vectors on every
+# rank, one all_reduce per apply). Gates: the banded matvec bitwise the
+# unsharded operator's (K2 is bitwise repeatable, computes an angle's row
+# alike in any launch of the same plan, and the rows are copied into
+# place; a sum with the other ranks' zeros is exact); rmatvec and
+# normal_matvec within SHARD_RTOL (K1 and K3 add with atomics), the ELL
+# and BSR operators within SHARD_RTOL of the host scipy product; K1, K2 or
+# K3 once per apply and rank, one all_reduce per apply; cgls_normal as 3
+# and 10 hold it (FINAL_ATOL of JAX_CGLS_RELERR, STREAM_GATE of
+# JAX_STREAMED_RELERR: the same CG on the same matrix).
+SHARD_RTOL = 1e-5
+SHARD_ITERS = {"tomo": CGLS_ITERS, "dynamic": 20}
+SHARD_JOIN_S = 300  # the limit on [11b]'s ranks
+SHARD_REPS = 20     # timed applies and collectives
+ONE_LAUNCH = {"matvec": {"banded_fwd": 1, "banded_adj": 0, "banded_ata": 0},
+              "rmatvec": {"banded_fwd": 0, "banded_adj": 1, "banded_ata": 0},
+              "normal_matvec": {"banded_fwd": 0, "banded_adj": 0,
+                                "banded_ata": 1}}
+KERNEL_OF = {"matvec": "banded_fwd", "rmatvec": "banded_adj",
+             "normal_matvec": "banded_ata"}
+APPLY_OF = {k: a for a, k in KERNEL_OF.items()}
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def counted(fn, v):
+    """(``fn(v)``, K1-K3 launches, all_reduce calls) of one call."""
+    import torch
+
+    from trips_tpu_torch.parallel import sharding
+    from trips_tpu_torch.sparse import banded_kernels as bk
+
+    before = (dict(bk.launch_counts),
+              sharding.collective_counts["all_reduce"])
+    out = fn(v)
+    torch.cuda.synchronize()
+    return (out, {k: bk.launch_counts[k] - before[0][k]
+                  for k in bk.launch_counts},
+            sharding.collective_counts["all_reduce"] - before[1])
+
+
+def sharded_gates(sop, ref, x, y):
+    """Each apply of ``sop`` against ``ref`` (a callable name -> the
+    unsharded output): matvec bitwise, the others within SHARD_RTOL, one
+    launch and one all_reduce each. -> ({apply: rel err}, {apply:
+    launches of its kernel})."""
+    errs, launches = {}, {}
+    for name, v in (("matvec", x), ("rmatvec", y), ("normal_matvec", x)):
+        out, got, coll = counted(getattr(sop, name), v)
+        r = ref(name)
+        errs[name] = rel(out, r)
+        launches[name] = got[KERNEL_OF[name]]
+        if name == "matvec":
+            check(bool((out == r).all()), f"sharded matvec not bitwise the "
+                  f"unsharded one's (rel {errs[name]!r})")
+        check(errs[name] <= SHARD_RTOL, f"sharded {name} rel {errs[name]!r}")
+        check(got == ONE_LAUNCH[name] and coll == 1,
+              f"sharded {name}: launches {got}, all_reduce {coll}")
+    return errs, launches
+
+
+def profiled_kernels(fn, reps):
+    """{kernel: device ms per call} of ``reps`` calls of ``fn()`` in one
+    profiler session; empty where none ran (NCCL may launch nothing for a
+    one-rank all_reduce)."""
+    import torch
+    from torch.autograd import DeviceType
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:60]: e.self_device_time_total / reps / 1e3
+            for e in prof.key_averages()
+            if e.self_device_time_total and e.device_type == DeviceType.CUDA}
+
+
+def cgn_history(op, bv, x0, xt, its):
+    """relError of every ``cgls_normal`` iterate, the loop of 3. -> (list,
+    final x)."""
+    from trips_tpu_torch.krylov.cgls import _cgn_chunk, _cgn_init
+
+    s, errs = _cgn_init(op, bv, x0), []
+    for it in range(1, its + 1):
+        s = _cgn_chunk(op, 0.0, s, it)
+        errs.append(float((s.x - xt).norm() / xt.norm()))
+    return errs, s.x
+
+
+def cgn_gates(label, errs, which):
+    """Hold a sharded cgls_normal's history as 3 (tomo: final and minimum
+    against JAX's CGLS) or 10 (dynamic: final against JAX's) do."""
+    if which == "tomo":
+        ref = np.array(JAX_CGLS_RELERR)
+        gaps = (abs(errs[-1] - ref[-1]), abs(min(errs) - ref.min()))
+        check(max(gaps) <= FINAL_ATOL, f"{label} cgls_normal {gaps}")
+        return (f"relError final {errs[-1]!r} (JAX CPU {float(ref[-1])!r}), "
+                f"min {min(errs)!r} (JAX CPU {float(ref.min())!r}), gate "
+                f"{FINAL_ATOL}")
+    gap = abs(errs[-1] - JAX_STREAMED_RELERR)
+    check(gap <= STREAM_GATE, f"{label} cgls_normal gap {gap!r}")
+    return (f"relError final {errs[-1]!r} (JAX CPU {JAX_STREAMED_RELERR!r}, "
+            f"gate {STREAM_GATE})")
+
+
+def sharded_world1(dev, card, packs, A, dyn, tomo):
+    """Phase 11a: world size 1 over NCCL in this process, every sharded
+    class at full width against its unsharded operator or the host
+    product; launches and collectives per apply; the applies' times beside
+    the unsharded ones and the NCCL all_reduce's device time; cgls_normal
+    on the sharded float32 packs. ``packs``: {label: unsharded banded
+    operator}; ``tomo``: (bv, x0, xt) of 3. -> {label: {apply: K1-K3
+    launches}}."""
+    import torch
+    import torch.distributed as dist
+
+    from trips_tpu_torch.parallel import (
+        ShardedBandedProjector, ShardedBsrOperator,
+        ShardedBucketedBandedProjector, ShardedBucketedDynamicBandedOperator,
+        ShardedDynamicBandedOperator, ShardedDynamicBsrOperator,
+        ShardedDynamicOperator, ShardedEllOperator, make_mesh)
+    from trips_tpu_torch.sparse import EllOperator
+
+    check(dist.is_nccl_available(), "torch.distributed has no NCCL here")
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        t0 = time.perf_counter()
+        shard = {}
+        for label, op in packs.items():
+            if label.startswith("dynamic"):
+                cls = (ShardedDynamicBandedOperator if "flat" in label
+                       else ShardedBucketedDynamicBandedOperator)
+                shard[label] = cls.from_dynamic(op, make_mesh(
+                    {"time": 1, "angles": 1}), device=dev)
+            elif "flat" in label:
+                shard[label] = ShardedBandedProjector.from_banded(
+                    op, make_mesh({"rows": 1}), device=dev)
+            else:
+                shard[label] = ShardedBucketedBandedProjector.from_bucketed(
+                    op, make_mesh({"angles": 1}), device=dev)
+        print(f"[11a] NCCL world 1: {len(shard)} banded packs sharded in "
+              f"{time.perf_counter() - t0:.2f} s (slab views of the "
+              f"unsharded stacks: {[s.stored_bytes for s in shard.values()]}"
+              f" bytes)")
+        rng = np.random.default_rng(11)
+        launches = {}
+        for label, sop in shard.items():
+            op = packs[label]
+            x = torch.tensor(rng.standard_normal(op.shape[1]),
+                             dtype=torch.float32, device=dev)
+            y = torch.tensor(rng.standard_normal(op.shape[0]),
+                             dtype=torch.float32, device=dev)
+            errs, launches[label] = sharded_gates(
+                sop, lambda name: getattr(op, name)(x if name != "rmatvec"
+                                                    else y), x, y)
+            # CUDA events (the device's interval, host gaps included),
+            # device time (kernels alone) and the host's enqueue
+            times = {name: [f(lambda: getattr(o, name)(v), SHARD_REPS)
+                            for f in (cuda_ms, device_ms, enqueue_ms)
+                            for o in (sop, op)]
+                     for name, v in (("matvec", x), ("rmatvec", y),
+                                     ("normal_matvec", x))}
+            print(f"[11a] {label}: matvec bitwise the unsharded one's, "
+                  f"rmatvec {errs['rmatvec']!r}, normal_matvec "
+                  f"{errs['normal_matvec']!r} (gate {SHARD_RTOL}); one "
+                  f"launch and one all_reduce per apply; ms per apply, "
+                  f"sharded / unsharded, by CUDA events, device time, host "
+                  f"enqueue: " + "; ".join(
+                      f"{k} {t[0]!r} / {t[1]!r}, {t[2]!r} / {t[3]!r}, "
+                      f"{t[4]!r} / {t[5]!r}" for k, t in times.items())
+                  + f"; card {card}")
+
+        # the ELL and BSR operators: tomo256x60's A, the dynamic frames
+        AA, Ad = dyn["AA"], dyn["A"]
+        t0 = time.perf_counter()
+        sparse_ops = {
+            "ELL tomo256x60": (ShardedEllOperator.from_ell(
+                EllOperator.from_scipy(A, device=dev), make_mesh(
+                    {"rows": 1}), device=dev), A),
+            "BSR tomo256x60": (ShardedBsrOperator.from_scipy(
+                A, make_mesh({"rows": 1}), device=dev), A),
+            "ELL dynamic": (ShardedDynamicOperator.from_blocks(
+                AA, make_mesh({"time": 1, "rows": 1}), device=dev), Ad),
+            "BSR dynamic": (ShardedDynamicBsrOperator.from_blocks(
+                AA, make_mesh({"time": 1, "rows": 1}), device=dev), Ad)}
+        print(f"[11a] ELL and BSR operators built in "
+              f"{time.perf_counter() - t0:.2f} s")
+        for label, (sop, M) in sparse_ops.items():
+            # BSR holds float32 values: the host product of the same
+            Mh = (M.astype(np.float32) if "BSR" in label else M).astype(
+                np.float64)
+            m, n = M.shape
+            xh, yh = rng.standard_normal(n), rng.standard_normal(m)
+            errs = {}
+            for name, v, ref, size in (("matvec", xh, Mh @ xh, sop.shape[1]),
+                                       ("rmatvec", yh, Mh.T @ yh,
+                                        sop.shape[0])):
+                vp = np.zeros(size)
+                vp[:len(v)] = v
+                vt = torch.tensor(vp, dtype=sop.dtype, device=dev)
+                out, _, coll = counted(getattr(sop, name), vt)
+                errs[name] = rel(out[:len(ref)].cpu(), torch.from_numpy(ref))
+                check(errs[name] <= SHARD_RTOL and coll == 1,
+                      f"{label} {name} rel {errs[name]!r}, all_reduce "
+                      f"{coll}")
+                errs[name + " ms"] = cuda_ms(
+                    lambda: getattr(sop, name)(vt), SHARD_REPS)
+            print(f"[11a] {label} ({sop.dtype}, shape {sop.shape}) vs the "
+                  f"host scipy product: {errs} (gate {SHARD_RTOL}); card "
+                  f"{card}")
+
+        # the collective alone: NCCL all_reduce of the applies' buffers
+        for what, numel in (("tomo256x60 image", 256 * 256),
+                            ("tomo256x60 sinogram", A.shape[0]),
+                            ("dynamic images", Ad.shape[1]),
+                            ("dynamic sinograms", Ad.shape[0])):
+            buf = torch.zeros(numel, dtype=torch.float32, device=dev)
+            walls = [cuda_ms(lambda: dist.all_reduce(buf), SHARD_REPS)
+                     for _ in range(3)]
+            host = enqueue_ms(lambda: dist.all_reduce(buf), SHARD_REPS)
+            kernels = profiled_kernels(lambda: dist.all_reduce(buf),
+                                       SHARD_REPS)
+            print(f"[11a] NCCL all_reduce of the {what} ({numel * 4} bytes, "
+                  f"1 rank): CUDA events {walls!r} ms (three runs), host "
+                  f"enqueue {host!r} ms; device ms per call by kernel "
+                  f"{kernels or 'none (no kernel launched)'}; card {card}")
+
+        bv, x0, xt = tomo
+        for label, which in (("bucketed float32", "tomo"),
+                             ("dynamic bucketed float32", "dynamic")):
+            sop = shard[label]
+            if which == "dynamic":
+                bv = dyn["bv"]
+                xt = torch.tensor(dyn["x_true"], dtype=torch.float32,
+                                  device=dev)
+                x0 = torch.zeros_like(xt)
+            errs, _ = cgn_history(sop, bv, x0, xt, SHARD_ITERS[which])
+            print(f"[11a] sharded {label} cgls_normal, "
+                  f"{SHARD_ITERS[which]} iterations: "
+                  + cgn_gates(label, errs, which))
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
+def save_pack(path, op):
+    """The NumPy stacks of a bucketed (static or dynamic) pack and what
+    ``from_numpy_stacks`` needs beside them."""
+    arrays = {f"s{k}_{j}": t.cpu().numpy() for k, st in enumerate(op.stacks)
+              for j, t in enumerate(st)}
+    meta = {"parts": [len(st) for st in op.stacks],
+            "is_cols": list(op.is_cols), "shape": list(op.shape),
+            "nx": op.nx, "p": op.det_count, "n_groups": op.n_groups,
+            "nnz": int(op.nnz), "n_pad": op.n_pad}
+    if hasattr(op, "nt"):
+        meta.update(views=op.views, nt=op.nt)
+    else:
+        meta["aidxs"] = [list(a) for a in op.aidxs]
+    np.savez(path, meta=json.dumps(meta), **arrays)
+
+
+def load_pack(path):
+    """``save_pack``'s file -> the operator on the CPU."""
+    from trips_tpu_torch.sparse import (BucketedBandedProjector,
+                                        BucketedDynamicBandedOperator)
+
+    z = np.load(path)
+    meta = json.loads(str(z["meta"]))
+    stacks = [[z[f"s{k}_{j}"] for j in range(n)]
+              for k, n in enumerate(meta["parts"])]
+    common = (meta["shape"], meta["nx"], meta["p"])
+    if "nt" in meta:
+        return BucketedDynamicBandedOperator.from_numpy_stacks(
+            stacks, meta["is_cols"], *common, meta["views"],
+            meta["n_groups"], meta["nnz"], meta["nt"], meta["n_pad"],
+            device="cpu")
+    return BucketedBandedProjector.from_numpy_stacks(
+        stacks, meta["aidxs"], meta["is_cols"], *common, meta["n_groups"],
+        meta["nnz"], meta["n_pad"], device="cpu")
+
+
+SHARD_LEGS = {"tomo256x60 bucketed float32": ("tomo", True),
+              "tomo256x60 bucketed int8": ("tomo", False),
+              "dynamic bucketed float32": ("dynamic", True)}
+
+
+def sharded_rank(rank, port, tmp):
+    """One of [11b]'s two ranks on the one card (gloo on CUDA tensors):
+    each leg's pack rebuilt from the NumPy stacks on the CPU and sharded
+    to the card, the gates' numbers against the unsharded outputs the
+    parent saved, K1-K3's device time over the rank's angles (one rank at
+    a time), the gloo all_reduce's wall, cgls_normal; writes
+    ``rank<r>.json`` and its final iterates."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from trips_tpu_torch.parallel import (
+        ShardedBucketedBandedProjector, ShardedBucketedDynamicBandedOperator,
+        init_multihost, make_mesh)
+    from trips_tpu_torch.parallel.sharding import all_reduce
+    from trips_tpu_torch.sparse import banded_kernels as bk
+    from trips_tpu_torch.sparse.banded_buckets import drive_images
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    init_multihost(f"127.0.0.1:{port}", 2, rank, backend="gloo",
+                   timeout=datetime.timedelta(seconds=SHARD_JOIN_S))
+    out = {}
+    try:
+        ref = np.load(f"{tmp}/refs.npz")
+
+        def barrier():  # an all_reduce of one number, on the host
+            dist.all_reduce(torch.zeros(1))
+
+        for leg, (which, solve) in SHARD_LEGS.items():
+            key = leg.replace(" ", "_")
+            op = load_pack(f"{tmp}/{key}.npz")
+            t0 = time.perf_counter()
+            if which == "dynamic":
+                sop = ShardedBucketedDynamicBandedOperator.from_dynamic(
+                    op, make_mesh({"time": 1, "angles": 2}), device=dev)
+            else:
+                sop = ShardedBucketedBandedProjector.from_bucketed(
+                    op, make_mesh({"angles": 2}), device=dev)
+            res = {"shard_s": time.perf_counter() - t0,
+                   "stored_bytes": sop.stored_bytes,
+                   "angles": sum(st[0].shape[-4] for st in sop.stacks),
+                   "buckets": len(sop.stacks)}
+            del op
+            x = torch.from_numpy(ref[key + "_x"]).to(dev)
+            y = torch.from_numpy(ref[key + "_y"]).to(dev)
+            res["errs"], res["launches"] = {}, {}
+            for name, v in (("matvec", x), ("rmatvec", y),
+                            ("normal_matvec", x)):
+                got, launched, coll = counted(getattr(sop, name), v)
+                r = torch.from_numpy(ref[f"{key}_{name}"]).to(dev)
+                res["errs"][name] = rel(got, r)
+                res["launches"][name] = launched
+                res["collectives_" + name] = coll
+                if name == "matvec":
+                    res["bitwise"] = bool((got == r).all())
+            # K1-K3 over this rank's angles, one rank at a time
+            X, XT = (sop._images(x) if which == "dynamic" else
+                     drive_images(x, sop.nx, sop.n_pad))
+            na = sum(a.shape[-1] for a in sop._lids)
+            Yl = torch.randn(X.shape[:-2] + (na, sop.det_count), device=dev)
+            calls = {"banded_fwd": lambda: bk.banded_fwd_buckets(
+                         X, XT, sop._bks, sop._lids, sop.det_count,
+                         sop.n_groups),
+                     "banded_adj": lambda: bk.banded_adj_buckets(
+                         Yl, sop._bks, sop._lids, sop.n_groups),
+                     "banded_ata": lambda: bk.banded_ata_buckets(
+                         X, XT, sop._bks, sop.n_groups)}
+            res["kernel_ms"] = {}
+            for turn in range(2):
+                if turn == rank:
+                    res["kernel_ms"] = {k: device_ms(f, SHARD_REPS)
+                                        for k, f in calls.items()}
+                barrier()
+            # the buffer rmatvec and normal_matvec reduce
+            img = (sop._zero_images(dev) if which == "dynamic" else
+                   torch.zeros(sop.n_pad, sop.n_pad, device=dev))
+            walls = []
+            for _ in range(SHARD_REPS):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                all_reduce(img, sop.mesh)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t)
+            res["gloo_ms"] = float(np.median(walls)) * 1e3
+            res["gloo_bytes"] = img.numel() * 4
+            if solve:
+                bv = torch.from_numpy(ref[key + "_b"]).to(dev)
+                xt = torch.from_numpy(ref[key + "_xt"]).to(dev)
+                errs, xf = cgn_history(sop, bv, torch.zeros_like(xt), xt,
+                                       SHARD_ITERS[which])
+                res["cgn"] = errs
+                np.save(f"{tmp}/{key}_x{rank}.npy", xf.cpu().numpy())
+            out[leg] = res
+            del sop
+            torch.cuda.empty_cache()
+        with open(f"{tmp}/rank{rank}.json", "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_ranks(dev, card, packs, tomo, dyn, whole_ms):
+    """Phase 11b: two ranks on the one card over gloo (NCCL refuses two
+    ranks on one device). The packs' NumPy stacks and the unsharded
+    outputs are saved once; each rank rebuilds the packs on the CPU and
+    shards them to the card. Gates as 11a, and the two ranks' final
+    iterates bitwise equal; a rank that fails or outlives SHARD_JOIN_S
+    fails the phase. ``whole_ms``: {leg: {kernel: device ms of the whole
+    operator}} from 4 and 7. -> {leg: [per rank {apply: launches}]}."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from trips_tpu_torch import _build
+
+    _build.load()  # built once, before the ranks start
+    bv, x0, xt = tomo
+    rng = np.random.default_rng(12)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_shard_") as tmp:
+        t0 = time.perf_counter()
+        refs = {}
+        for leg, (which, solve) in SHARD_LEGS.items():
+            key, op = leg.replace(" ", "_"), packs[leg]
+            save_pack(f"{tmp}/{key}.npz", op)
+            x = torch.tensor(rng.standard_normal(op.shape[1]),
+                             dtype=torch.float32, device=dev)
+            y = torch.tensor(rng.standard_normal(op.shape[0]),
+                             dtype=torch.float32, device=dev)
+            refs.update({key + "_x": x, key + "_y": y,
+                         key + "_matvec": op.matvec(x),
+                         key + "_rmatvec": op.rmatvec(y),
+                         key + "_normal_matvec": op.normal_matvec(x)})
+            if solve:
+                refs[key + "_b"] = bv if which == "tomo" else dyn["bv"]
+                refs[key + "_xt"] = xt if which == "tomo" else torch.tensor(
+                    dyn["x_true"], dtype=torch.float32)
+        np.savez(f"{tmp}/refs.npz",
+                 **{k: v.cpu().numpy() for k, v in refs.items()})
+        print(f"[11b] packs and unsharded outputs saved in "
+              f"{time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        ctx = mp.get_context("spawn")
+        port = free_port()
+        procs = [ctx.Process(target=sharded_rank, args=(r, port, tmp))
+                 for r in range(2)]
+        for p in procs:
+            p.start()
+        try:
+            deadline = time.monotonic() + SHARD_JOIN_S
+            for p in procs:
+                p.join(max(deadline - time.monotonic(), 0))
+            codes = [p.exitcode for p in procs]
+            check(codes == [0, 0], f"[11b] ranks' exit codes {codes} "
+                  f"(None: alive past {SHARD_JOIN_S} s)")
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join(10)
+        wall = time.perf_counter() - t0
+        res = []
+        for r in range(2):
+            with open(f"{tmp}/rank{r}.json") as f:
+                res.append(json.load(f))
+        launches = {}
+        for leg, (which, solve) in SHARD_LEGS.items():
+            key = leg.replace(" ", "_")
+            for r, rr in enumerate(res):
+                g = rr[leg]
+                check(g["bitwise"], f"[11b] {leg} rank {r}: matvec not "
+                      f"bitwise the unsharded one's")
+                for name, e in g["errs"].items():
+                    check(e <= SHARD_RTOL, f"[11b] {leg} rank {r} {name} "
+                          f"rel {e!r}")
+                    check(g["launches"][name] == ONE_LAUNCH[name]
+                          and g["collectives_" + name] == 1,
+                          f"[11b] {leg} rank {r} {name}: launches "
+                          f"{g['launches'][name]}, all_reduce "
+                          f"{g['collectives_' + name]}")
+                print(f"[11b] {leg}, rank {r}: {g['angles']} angles in "
+                      f"{g['buckets']} buckets, {g['stored_bytes']} bytes "
+                      f"(sharded in {g['shard_s']:.2f} s); matvec bitwise "
+                      f"the unsharded one's, rmatvec "
+                      f"{g['errs']['rmatvec']!r}, normal_matvec "
+                      f"{g['errs']['normal_matvec']!r} (gate {SHARD_RTOL});"
+                      f" one launch and one all_reduce per apply; device ms "
+                      f"over its angles (alone on the card): " + "; ".join(
+                          f"{k} {v!r} (whole operator "
+                          f"{whole_ms[leg][k]!r})"
+                          for k, v in g["kernel_ms"].items())
+                      + f"; gloo all_reduce of {g['gloo_bytes']} bytes of "
+                      f"CUDA tensors, staged through the host (not a speed "
+                      f"of the card): wall {g['gloo_ms']!r} ms; card {card}")
+                if solve:
+                    print(f"[11b] {leg}, rank {r}: cgls_normal "
+                          f"{SHARD_ITERS[which]} iterations: "
+                          + cgn_gates(leg, g["cgn"], which))
+            if solve:
+                xs = [np.load(f"{tmp}/{key}_x{r}.npy") for r in range(2)]
+                check(np.array_equal(xs[0], xs[1]), f"[11b] {leg}: the "
+                      f"ranks' final iterates differ")
+                print(f"[11b] {leg}: the two ranks' final iterates bitwise "
+                      f"equal")
+            launches[leg] = [rr[leg]["launches"] for rr in res]
+        print(f"[11b] two ranks ran in {wall:.1f} s (spawn, CUDA start-up, "
+              f"loading and sharding included)")
+    return launches
+
+
 def main():
     import torch
 
@@ -1956,7 +2483,9 @@ def main():
     from trips_tpu_torch.operators import FirstDerivative2D, ShearFanProjector
     from trips_tpu_torch.operators import shear_kernels as sk
     from trips_tpu_torch.problems import Tomography, device_sparse_operator
+    from trips_tpu_torch.parallel import sharding
     from trips_tpu_torch.solvers import CGLS
+    from trips_tpu_torch.sparse import BandedProjector
     from trips_tpu_torch.sparse import banded_kernels as bk
 
     dev = torch.device("cuda")
@@ -2677,6 +3206,37 @@ def main():
           f"streamed path: {streamed}; card {card}")
     check(all(v > 0 for v in streamed.values()),
           "a kernel never launched in the streamed path")
+    # ---- 11. the sharded operators ---------------------------------------
+    t0 = time.perf_counter()
+    flat = BandedProjector.from_scipy_fan(A, nx, None, angles=tomo.theta,
+                                          n_groups=32, device=dev)
+    packs = {f"bucketed {k}": ops[k] for k in ("float32", "bfloat16",
+                                                "int8")}
+    packs.update({"flat float32": flat, **{
+        f"dynamic {k}": dyn["ops"][k] for k in ("bucketed float32",
+                                                 "flat float32")}})
+    bk.reset_launch_counts()
+    sharding.reset_collective_counts()
+    world1 = sharded_world1(dev, card, packs, A, dyn, (bv, x0, xt))
+    sharded = dict(bk.launch_counts)
+    check(all(v > 0 for v in sharded.values()),
+          f"a kernel never launched in the sharded path: {sharded}")
+    del flat, packs
+    dyn_ms = {e["name"].removesuffix("_frames"):
+              e["ms_by_storage"]["bucketed float32"] for e in kernels
+              if e["name"].endswith("_frames")}
+    world2 = sharded_ranks(
+        dev, card, {"tomo256x60 bucketed float32": ops["float32"],
+                    "tomo256x60 bucketed int8": ops["int8"],
+                    "dynamic bucketed float32":
+                        dyn["ops"]["bucketed float32"]},
+        (bv, x0, xt), dyn,
+        {"tomo256x60 bucketed float32": kernel_ms["float32"],
+         "tomo256x60 bucketed int8": kernel_ms["int8"],
+         "dynamic bucketed float32": dyn_ms})
+    print(f"[11] took {time.perf_counter() - t0:.1f} s; launches in the "
+          f"sharded path at world 1: {sharded}, all_reduce calls "
+          f"{sharding.collective_counts['all_reduce']}; card {card}")
     static_fused = {k: v for k, v in fused["launches"].items()
                     if "dynamic" not in k and "checkpointed" not in k}
     dynamic_fused = {k: v for k, v in fused["launches"].items()
@@ -2690,6 +3250,17 @@ def main():
         if entry["name"].endswith("_frames"):
             entry["streamed_launches"] = streamed[
                 entry["name"].removesuffix("_frames")]
+        k = entry["name"].removesuffix("_frames")
+        if k in APPLY_OF and (entry["name"].endswith("_frames")
+                              or entry.get("storage") == "float32"):
+            w1, w2 = (("dynamic bucketed float32",) * 2
+                      if entry["name"].endswith("_frames") else
+                      ("bucketed float32", "tomo256x60 bucketed float32"))
+            a = APPLY_OF[k]
+            entry["sharded_launches"] = {
+                "per apply, world 1 (NCCL)": world1[w1][a],
+                "per apply, world 2 (gloo, one card), ranks 0 and 1":
+                    [r[a][k] for r in world2[w2]]}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1002,3 +1002,72 @@ def test_batched_frame_solve_matches_cpu(cuda, solver):
     assert X[cuda].device.type == "cuda" and X[cuda].dtype == torch.float64
     for f in range(nt):
         assert _rel(X[cuda][f].cpu(), X["cpu"][f]) <= 1e-6, f
+
+
+def _sharded_gates(sop, op, x, y):
+    """Each apply of the sharded ``sop`` against the unsharded ``op``:
+    ``matvec`` bitwise, the others within 1e-5, one launch of its kernel
+    and one all_reduce each."""
+    from trips_tpu_torch.parallel import collective_counts
+
+    for name, v, kernel in (("matvec", x, "banded_fwd"),
+                            ("rmatvec", y, "banded_adj"),
+                            ("normal_matvec", x, "banded_ata")):
+        before = (dict(bk.launch_counts), collective_counts["all_reduce"])
+        got = getattr(sop, name)(v)
+        torch.cuda.synchronize()
+        launched = {k: bk.launch_counts[k] - before[0][k]
+                    for k in bk.launch_counts}
+        assert launched == {k: int(k == kernel) for k in launched}, name
+        assert collective_counts["all_reduce"] - before[1] == 1, name
+        ref = getattr(op, name)(v)
+        if name == "matvec":
+            assert torch.equal(got, ref)
+        assert _rel(got, ref) <= 1e-5, name
+
+
+@pytest.mark.parametrize("kind", ["flat", None, "int8"])
+def test_sharded_banded_on_card(cuda, kind):
+    """A one-rank mesh without a process group (the all_reduce is the
+    identity): the sharded static packs, sharded from a host pack, against
+    the unsharded pack on the card."""
+    from trips_tpu_torch.parallel import (ShardedBandedProjector,
+                                          ShardedBucketedBandedProjector,
+                                          make_mesh)
+    from trips_tpu_torch.sparse import BandedProjector
+
+    nx = 40
+    A = fan_beam_matrix(nx, views=12).astype(np.float32)
+    mesh = make_mesh({"angles": 1})
+    if kind == "flat":
+        ops = [BandedProjector.from_scipy_fan(A, nx, 12, n_groups=8,
+                                              device=d) for d in ("cpu", cuda)]
+        sop = ShardedBandedProjector.from_banded(ops[0], mesh, axis="angles",
+                                                 device=cuda)
+    else:
+        ops = [_op(d, kind, nx) for d in ("cpu", cuda)]
+        sop = ShardedBucketedBandedProjector.from_bucketed(ops[0], mesh,
+                                                           device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn(A.shape[1], device=cuda, generator=g)
+    y = torch.randn(A.shape[0], device=cuda, generator=g)
+    _sharded_gates(sop, ops[1], x, y)
+
+
+@pytest.mark.parametrize("kind", ["flat", "bucketed"])
+def test_sharded_dynamic_on_card(cuda, dynamic32, kind):
+    """The (time x angles)-sharded dynamic packs (padded angles in some
+    frames) on a one-rank mesh, against the unsharded dynamic pack."""
+    from trips_tpu_torch.parallel import (
+        ShardedBucketedDynamicBandedOperator, ShardedDynamicBandedOperator,
+        make_mesh)
+
+    op = _dyn(dynamic32, kind, None, cuda)
+    cls = (ShardedDynamicBandedOperator if kind == "flat"
+           else ShardedBucketedDynamicBandedOperator)
+    sop = cls.from_dynamic(op, make_mesh({"time": 1, "angles": 1}),
+                           device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(op.shape[1], device=cuda, generator=g)
+    y = torch.randn(op.shape[0], device=cuda, generator=g)
+    _sharded_gates(sop, op, x, y)

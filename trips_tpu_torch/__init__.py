@@ -13,8 +13,11 @@ device, LSQR, checkpointed runs), and deblurring (the 1D and 2D blurs,
 the framelet operator, the deblurring problems, the direct Tikhonov, TSVD
 and TGSVD solvers with the GSVD, the linear-operator combinators, the
 validation helpers), out-of-core and batched dynamic CT (``parallel``: the
-streamed operator over the same kernels, the per-frame batched solve),
-``config`` and ``utils.telemetry``. The JAX package ``trips_tpu`` is the
+streamed operator over the same kernels, the per-frame batched solve), the
+operators sharded over ranks on ``torch.distributed`` (``parallel``: ELL,
+BSR as CSR, and the static and dynamic banded packs over K1-K3, with the
+meshes and the process-group start-up), ``config`` and
+``utils.telemetry``. The JAX package ``trips_tpu`` is the
 reference each part is tested against.
 """
 import torch

@@ -1,9 +1,11 @@
 """Padded ELL sparse operator on torch tensors.
 
-Counterpart of ``trips_tpu/sparse/ell.py``, the part ``parallel/batched.py``
-needs: rows padded to a common nonzeros-per-row width, the transpose table
-materialized beside. The applies are the JAX package's XLA gathers, not
-Pallas kernels, so plain torch is their port: ``matvec`` is
+Counterpart of ``trips_tpu/sparse/ell.py``: rows padded to a common
+nonzeros-per-row width, the transpose table materialized beside
+(``parallel/batched.py`` stacks the tables of frames, the sharded ELL
+operators of ``parallel/sharding.py`` split them). The applies are the
+JAX package's XLA gathers, not Pallas kernels, so plain torch is their
+port: ``matvec`` is
 ``(vals * x[cols]).sum(1)`` (``_ell_matvec``), ``matmat`` sums the slots
 in chunks of 8 in the order of ``_ell_matmat``'s scan. ``sparse/csr.py``
 stays the port's general sparse operator.
@@ -14,6 +16,7 @@ import numpy as np
 import torch
 
 from ..config import round_up
+from ..core.device import DEFAULT, resolve
 from ..core.linop import LinearOperator
 
 
@@ -49,6 +52,39 @@ class EllOperator(LinearOperator):
         self.device = vals.device
         self.nnz = (nnz if nnz is not None
                     else int(torch.count_nonzero(vals)))
+
+    @classmethod
+    def from_scipy(cls, A, dtype=None, device=DEFAULT):
+        """A scipy sparse matrix (any format); ``dtype`` None keeps its
+        dtype. ``device``: the CUDA card unless "cpu" is asked for."""
+        from scipy import sparse as sp
+
+        device = resolve(device)
+        A = sp.csr_matrix(A)
+        if dtype is not None:
+            A = A.astype(dtype)
+        tabs = _csr_to_ell(A) + _csr_to_ell(A.T.tocsr())
+        return cls(*(torch.from_numpy(t).to(device) for t in tabs), A.shape,
+                   nnz=A.nnz)
+
+    @classmethod
+    def from_dense(cls, M, dtype=None, device=DEFAULT):
+        from scipy import sparse as sp
+
+        return cls.from_scipy(sp.csr_matrix(np.asarray(M)), dtype=dtype,
+                              device=device)
+
+    def to_scipy(self):
+        """The stored entries as a scipy CSR matrix (padding dropped)."""
+        from scipy import sparse as sp
+
+        m, n = self.shape
+        vals = self.vals.cpu().numpy().ravel()
+        cols = self.cols.cpu().numpy().ravel()
+        rows = np.repeat(np.arange(m), self.vals.shape[1])
+        keep = vals != 0
+        return sp.csr_matrix((vals[keep], (rows[keep], cols[keep])),
+                             shape=(m, n))
 
     def matvec(self, x):
         return _ell_matvec(self.vals, self.cols, x)
