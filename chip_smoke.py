@@ -144,6 +144,32 @@ run by raising:
    bitwise equal; each rank's K1-K3 device time over its angles beside
    the whole operator's, the gloo all_reduce's wall (staged through the
    host). A rank that fails or outlives 300 s fails the run.
+12. the last modules (phases 2-11 build with the NumPy matrix builder, as
+   the JAX numbers they hold were made; this one with the C++ builder):
+   [12a] the C++ builder built on the card's host, its fan matrices at
+   256x60 and 512x180 and parallel ones at the dynamic cell's 128x128 and
+   330 angles against the NumPy builder's (the same rows but for chords
+   along a grid line, entries within 1e-9), the tomo256x60 pack byte-equal
+   under both, each builder's seconds; [12b] gelPhantom dynamic CT at the
+   reference's size on a bundle written from a seed (``GEL``: the real
+   geometry, 17 frames, 18 of 360 angles kept, 256x256):
+   ``BatchedBlockDiagOperator`` over the bucketed float32 pack of the one
+   shared geometry, K1-K3 over all frames against their plain versions and
+   the host CSR product, adjointness, one launch per apply; CGLS (30),
+   ``cgls_normal`` (30) and Hybrid LSQR with GCV (20), each final
+   relError held to 1e-3 of the JAX package's, launches against the loops'
+   counts, wall and device busy time per iteration, idle share; K1-K3's
+   device ms per apply beside their bound, plain versions and the
+   block-diagonal CSR product; [12c] ``demos.demo_l_curve`` at its
+   defaults (its six solves held to 1e-3 of JAX's float32 run, lambda
+   printed beside JAX's, K2/K3 launches against the loops' counts, the
+   six solves' wall and device busy time); [12d]
+   ``demos.demo_small_scale_cgls`` (``its`` equal to JAX's, relError to
+   1e-3); [12e] ``BsrOperator`` with float32, bfloat16 and int8 blocks on
+   tomo256x60's matrix against the host product of its stored values,
+   device ms beside the ``CsrOperator``'s; [12f]
+   ``bench.iters_to_tol.compare`` on the card beside JAX's rows; [12]'s
+   seconds.
 
 The line before the last holds ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -2471,6 +2497,611 @@ def sharded_ranks(dev, card, packs, tomo, dyn, whole_ms):
     return launches
 
 
+# Phase 12: the gelPhantom dynamic CT path at the reference's size. The
+# real bundle (Zenodo 3696817) is not in the repository and nothing
+# downloads, so ``gel_bundle`` writes one in its layout
+# (tests/test_dataset_fixtures.py:188-218) from a seed: the real bundle's
+# geometry (tests/test_gel_geometry.py:27-31: SO 410.66, SD 553.74, pixel
+# 0.1, 140 detectors) over 360 angles of 1 degree, its 17 frames, each a
+# 256x256 image whose middle 128x128 hold a Shepp-Logan phantom (the
+# detector sees a disk about 140 voxels across) with a disk whose radius
+# grows with t, projected through the full 360-angle ``gel_operator``
+# matrix (NumPy builder) plus 1% Gaussian noise from default_rng(0).
+GEL = dict(so=410.66, sd=553.74, pixel=0.1, n_det=140, n_angles=360,
+           nt=17, nx=256, step=20, noise=0.01)
+
+
+@contextlib.contextmanager
+def numpy_builder(on=True):
+    """``TRIPS_TPU_NO_NATIVE`` set to 1 (the NumPy matrix builder) or
+    unset (the C++ one) inside the block, restored after it."""
+    old = os.environ.pop("TRIPS_TPU_NO_NATIVE", None)
+    if on:
+        os.environ["TRIPS_TPU_NO_NATIVE"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("TRIPS_TPU_NO_NATIVE", None)
+        if old is not None:
+            os.environ["TRIPS_TPU_NO_NATIVE"] = old
+
+
+def gel_frames(nx, nt):
+    """The synthetic bundle's images ``(nt, nx, nx)``: a Shepp-Logan
+    phantom in the middle half of each side, and a disk of density 0.5
+    in it whose radius grows from 0.02 nx by 0.004 nx a frame."""
+    from trips_tpu_torch.problems.phantoms import shepp_logan
+
+    base = np.zeros((nx, nx))
+    base[nx // 4:nx // 4 + nx // 2, nx // 4:nx // 4 + nx // 2] = \
+        shepp_logan(nx // 2)
+    yy, xx = np.mgrid[:nx, :nx]
+    d2 = (yy - 0.55 * nx) ** 2 + (xx - 0.45 * nx) ** 2
+    return np.stack([base + 0.5 * (d2 <= (nx * (0.02 + 0.004 * t)) ** 2)
+                     for t in range(nt)])
+
+
+def gel_bundle(path):
+    """Write the synthetic gel bundle to ``path``
+    (``GelPhantomData_b4.mat``); return its images ``(nt, nx, nx)``."""
+    import scipy.io as spio
+
+    from trips_tpu_torch.problems.gelphantom import gel_operator
+
+    nt, n_angles, n_det = GEL["nt"], GEL["n_angles"], GEL["n_det"]
+    deg = np.arange(float(n_angles))
+    info = {"angles": deg * (np.pi / 180.0),
+            "distanceSourceOrigin": GEL["so"],
+            "distanceOriginDetector": GEL["sd"] - GEL["so"],
+            "numDetectors": n_det, "pixelSize": GEL["pixel"]}
+    with numpy_builder():
+        A = gel_operator(info, GEL["nx"], np.arange(n_angles))
+    X = gel_frames(GEL["nx"], nt)
+    sinos = (A @ X.reshape(nt, -1).T).T.reshape(nt, n_angles, n_det)
+    e = np.random.default_rng(0).standard_normal(sinos.shape)
+    sinos = sinos + GEL["noise"] * np.linalg.norm(sinos) / np.linalg.norm(
+        e) * e
+    params = {"distanceSourceDetector": GEL["sd"],
+              "distanceSourceOrigin": GEL["so"],
+              "geometricMagnification": GEL["sd"] / GEL["so"],
+              "numDetectors": float(n_det), "pixelSize": GEL["pixel"],
+              "pixelSizeRaw": GEL["pixel"] / 2,
+              "effectivePixelSize": 2 * GEL["pixel"] * GEL["so"] / GEL["sd"],
+              "angles": deg}
+    parr = np.zeros((nt,), dtype=[(k, "O") for k in params])
+    for k, v in params.items():
+        for t in range(nt):
+            parr[k][t] = v
+    spio.savemat(path, {"GelPhantomData_b4": {
+        "type": "2D", "sinogram": sinos, "parameters": parr}})
+    return X
+
+
+# The final relErrors of the gel solves from trips_tpu on the CPU on the
+# same bundle (``python3 demo_reference.py gel``: JAX 0.9.0, x64 off, the
+# NumPy matrix builder, ``BatchedBlockDiagOperator`` over the
+# ``EllOperator`` that ``device_sparse_operator`` takes there), and ||b||.
+JAX_GEL_RELERR = {"CGLS": 0.6762909877269393,
+                  "cgls_normal": 0.6762919694579435,
+                  "Hybrid LSQR gcv": 0.6763978253551075}
+B_GEL_NORM = 4149.342270692701
+GEL_ITERS = {"CGLS": 30, "cgls_normal": 30, "Hybrid LSQR gcv": 20}
+GEL_GATE = 1e-3
+QUEUE_SLEEP_CYCLES = 20_000_000  # torch.cuda._sleep: ~10 ms on an H100
+# trips_tpu_torch.demos.demo_l_curve at its defaults (64x64, 30 views, 20
+# iterations; the C++ builder): each final relError and lambda from
+# ``python3 demo_reference.py l_curve`` (x64 off, the gates) and
+# ``l_curve64`` (x64 on, printed beside); demo_small_scale_cgls at its
+# defaults (50x50, 50 iterations, tol 1e-3) from the same runs; and
+# trips_tpu.bench.iters_to_tol.compare()'s rows in float64 (l_curve64).
+JAX_LCURVE = {"GKS (l_curve)": (0.16496954856412005, 0.3454130211454522),
+              "MMGKS (l_curve)": (0.05745586548099301, 0.7551278306908265),
+              "GKS (dp)": (0.15994798437428312, 8.64365532326664),
+              "MMGKS (dp)": (0.05546399160065269, 3.4108661136055973),
+              "Hybrid LSQR (gcv)": (0.1684397417270963,
+                                    0.0006295758493222571),
+              "Hybrid LSQR (l_curve)": (0.1684236773001596,
+                                        0.021818487778084237)}
+JAX_LCURVE_F64 = {"GKS (l_curve)": (0.16496955141517583, 0.3454118837440751),
+                  "MMGKS (l_curve)": (0.05745582772684688,
+                                      0.7551274513354684),
+                  "GKS (dp)": (0.1599479258831255, 8.643591057237547),
+                  "MMGKS (dp)": (0.05546395819511715, 3.4108651201168594),
+                  "Hybrid LSQR (gcv)": (0.16885935885487094,
+                                        0.0007006010430388746),
+                  "Hybrid LSQR (l_curve)": (0.16882457617454996,
+                                            0.030362280617125183)}
+LCURVE_GATE = 1e-3
+JAX_SMALL_CGLS = (14, 0.13220479019133335)  # (its, final relError)
+JAX_ITERS_TO_TOL = [("tomo32x30", 32, 33), ("tomo64x40", 49, 51)]
+
+
+def checked_ms(fn, reps):
+    """(device ms per call of ``fn()``, source): the profiler's device time
+    over ``reps`` calls, taken only when that session recorded ``reps``
+    times the kernels of a session of one call (late profiler sessions of
+    one process drop device records, ROADMAP Queue 3 item 18: in a whole
+    run, K3's sessions held one launch in ten); three tries, else
+    ``queued_ms``."""
+    import torch
+    from torch.autograd import DeviceType
+
+    fn()
+    torch.cuda.synchronize()
+    act = [torch.profiler.ProfilerActivity.CUDA]
+
+    def session(calls):
+        with torch.profiler.profile(activities=act) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.key_averages() if e.self_device_time_total
+              and e.device_type == DeviceType.CUDA]
+        return (sum(e.count for e in ev),
+                sum(e.self_device_time_total for e in ev))
+
+    for _ in range(3):
+        one, _ = session(1)
+        count, us = session(reps)
+        if one and count == reps * one:
+            return us / reps / 1e3, "profiler"
+    return queued_ms(fn, reps)[0], "events"
+
+
+def queued_ms(fn, reps):
+    """(device ms per call of ``fn()``, whether the calls ran back to
+    back): ``reps`` calls enqueued behind a kernel that sleeps longer than
+    the host takes to enqueue them, between two CUDA events, so no host
+    gap lies between them. [12] times so because late profiler sessions
+    of one process drop device records (ROADMAP Queue 3 item 18: in a
+    whole run, K3's sessions held one launch in ten)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    cycles = QUEUE_SLEEP_CYCLES
+    for _ in range(4):
+        sleep = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        sleep[0].record()
+        torch.cuda._sleep(cycles)
+        sleep[1].record()
+        start.record()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        enqueue = (time.perf_counter() - t) * 1e3
+        end.record()
+        torch.cuda.synchronize()
+        if enqueue < sleep[0].elapsed_time(sleep[1]):
+            return start.elapsed_time(end) / reps, True
+        cycles *= 4
+    return start.elapsed_time(end) / reps, False
+
+
+def builder_checks(dev, card, A, dyn):
+    """Phase 12a: the C++ builder built and loaded, its matrices against
+    the NumPy builder's (fan 256x60 and 512x180, parallel 'line' at the
+    dynamic cell's 128x128 and 330 angles), the tomo256x60 pack byte-equal
+    under both, each builder's seconds."""
+    import torch
+
+    from trips_tpu_torch import native
+    from trips_tpu_torch.problems import fan_beam_matrix, parallel_beam_matrix
+    from trips_tpu_torch.sparse import BucketedBandedProjector
+
+    with numpy_builder(False):
+        native.load()
+    info = native.build_info
+    print(f"[12a] C++ builder {'built' if info['built'] else 'loaded'} in "
+          f"{info['seconds']:.3f} s: {info['path']}")
+    theta = lambda views: np.linspace(0, np.pi, views,  # noqa: E731
+                                      endpoint=False)
+    cases = {"fan 256x60": lambda: fan_beam_matrix(256, angles=theta(60)),
+             "fan 512x180": lambda: fan_beam_matrix(512, angles=theta(180)),
+             "parallel 128x330": lambda: parallel_beam_matrix(
+                 128, np.concatenate(dyn["angles"]))}
+    built = {}
+    for name, make in cases.items():
+        secs, mats = {}, {}
+        for label, on in (("C++", False), ("NumPy", True)):
+            with numpy_builder(on):
+                t = time.perf_counter()
+                mats[label] = make()
+                secs[label] = time.perf_counter() - t
+        C, N = mats["C++"], mats["NumPy"]
+        # the rows whose pattern differs: a chord along a grid line, put
+        # in the other square beside it; its total is the same
+        same = np.array([np.array_equal(C.indices[C.indptr[r]:C.indptr[r + 1]],
+                                        N.indices[N.indptr[r]:N.indptr[r + 1]])
+                         for r in range(C.shape[0])])
+        moved = np.flatnonzero(~same)
+        keep = np.flatnonzero(same)
+        err = float(abs(C[keep] - N[keep]).max()) if len(keep) else 0.0
+        tot = (float(np.abs(np.asarray(C[moved].sum(1))
+                            - np.asarray(N[moved].sum(1))).max())
+               if len(moved) else 0.0)
+        print(f"[12a] {name}: {C.shape} nnz C++ {C.nnz} NumPy {N.nnz}; "
+              f"{len(moved)} rows with another pattern (chord totals within "
+              f"{tot!r}), the other rows' entries within {err!r}; seconds "
+              f"C++ {secs['C++']!r}, NumPy {secs['NumPy']!r}")
+        check(err <= 1e-9 and tot <= 1e-9 and len(moved) <= C.shape[0] // 100,
+              f"{name}: C++ vs NumPy builder")
+        built[name] = secs
+    stacks, secs = {}, {}
+    for label, on in (("C++", False), ("NumPy", True)):
+        with numpy_builder(on):
+            t = time.perf_counter()
+            op = BucketedBandedProjector.from_scipy_fan(
+                A, 256, None, angles=theta(60), n_groups=32, device="cpu")
+            secs[label] = time.perf_counter() - t
+        stacks[label] = op.stacks
+    same = all(torch.equal(a, b) for s1, s2 in zip(stacks["C++"],
+                                                   stacks["NumPy"])
+               for a, b in zip(s1, s2))
+    print(f"[12a] tomo256x60 bucketed float32 pack (32 line groups): "
+          f"byte-equal under both builders {same}; seconds C++ "
+          f"{secs['C++']!r}, NumPy {secs['NumPy']!r}; card host of {card}")
+    check(same, "the pack differs between the builders")
+    built["pack tomo256x60"] = secs
+    return built
+
+
+def gel_args(op, X, Y):
+    """K1-K3 wrapper arguments of ``BatchedBlockDiagOperator`` over the
+    bucketed ``op``: images ``X (nt, n_pad, n_pad)`` and sinograms ``Y
+    (nt, n_angles, p)`` as its applies pass them (the weights shared:
+    frame stride 0)."""
+    XT = X.transpose(1, 2).contiguous()
+    return {"banded_ata": (X, XT, op._bks, op.n_groups),
+            "banded_fwd": (X, XT, op._bks, op._aidx, op.det_count,
+                           op.n_groups),
+            "banded_adj": (Y, op._bks, op._aidx, op.n_groups)}
+
+
+def gel_path(dev, card, gen):
+    """Phase 12b: the gelPhantom path at the reference's size, K1-K3
+    against their plain versions and the host CSR product, the solvers'
+    gates, launches, walls and device profiles, and K1-K3's device ms
+    per apply. -> the kernel entries of the JSON line."""
+    import tempfile
+
+    import torch
+
+    from trips_tpu_torch.core import BatchedBlockDiagOperator
+    from trips_tpu_torch.krylov import cgls_normal
+    from trips_tpu_torch.problems import (device_sparse_operator,
+                                          generate_gelPhantom)
+    from trips_tpu_torch.problems.gelphantom import read_frames
+    from trips_tpu_torch.solvers import CGLS, Hybrid_LSQR
+    from trips_tpu_torch.sparse import BucketedBandedProjector
+    from trips_tpu_torch.sparse import banded_kernels as bk
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gel_") as tmp:
+        X_true = gel_bundle(f"{tmp}/GelPhantomData_b4.mat")
+        t1 = time.perf_counter()
+        A, b, AA, B, nx, ny, nt = generate_gelPhantom(
+            nx=GEL["nx"], angle_step=GEL["step"], data_dir=tmp)
+        angles = read_frames(f"{tmp}/GelPhantomData_b4.mat")["angles"]
+    t2 = time.perf_counter()
+    check(abs(np.linalg.norm(b) - B_GEL_NORM) <= 1e-9 * B_GEL_NORM,
+          f"gel inputs differ from the reference's: ||b|| "
+          f"{np.linalg.norm(b)!r}")
+    keep = np.arange(0, GEL["n_angles"], GEL["step"])
+    op = device_sparse_operator(AA[0], nx=nx, angles=angles[keep],
+                                device=dev)
+    check(isinstance(op, BucketedBandedProjector), "gel: not the banded pack")
+    blk = BatchedBlockDiagOperator(op, nt)
+    t3 = time.perf_counter()
+    print(f"[12b] gel bundle written in {t1 - t0:.2f} s (360-angle NumPy "
+          f"matrix); generate_gelPhantom (C++ builder) {t2 - t1:.2f} s: A "
+          f"{A.shape}, {nt} frames of {AA[0].shape} nnz {AA[0].nnz}; pack "
+          f"{t3 - t2:.2f} s: {len(op.stacks)} buckets, W "
+          f"{[tuple(st[0].shape) for st in op.stacks]}, {op.stored_bytes} "
+          f"bytes")
+
+    na, p = len(keep), op.det_count
+    X = torch.randn(nt, op.n_pad, op.n_pad, device=dev, generator=gen)
+    Y = torch.randn(nt, na, p, device=dev, generator=gen)
+    args = gel_args(op, X, Y)
+    max_abs, errs = {}, {}
+    for name, a in args.items():
+        got = getattr(bk, name + "_buckets")(*a)
+        ref = getattr(bk, name + "_buckets_ref")(*a)
+        torch.cuda.synchronize()
+        check(got.shape == ref.shape, f"gel {name} shape")
+        errs[name] = rel(got, ref)
+        max_abs[name] = float((got - ref).abs().max())
+        check(errs[name] <= KERNEL_RTOL, f"gel {name} rel err {errs[name]!r}")
+    print(f"[12b] K1-K3 over {nt} frames (weight stride 0) vs plain, rel "
+          f"err: {errs}")
+    A64 = A.astype(np.float32).astype(np.float64)
+    rng = np.random.default_rng(3)
+    x = torch.tensor(rng.standard_normal(A.shape[1]), dtype=torch.float32,
+                     device=dev)
+    y = torch.tensor(rng.standard_normal(A.shape[0]), dtype=torch.float32,
+                     device=dev)
+    xd, yd = x.double().cpu().numpy(), y.double().cpu().numpy()
+    for name, got, ref in (
+            ("matvec", blk.matvec(x), A64 @ xd),
+            ("rmatvec", blk.rmatvec(y), A64.T @ yd),
+            ("normal_matvec", blk.normal_matvec(x), A64.T @ (A64 @ xd))):
+        e = rel(got.cpu(), torch.from_numpy(ref))
+        print(f"[12b] float32 {name} vs host block-diagonal CSR (float64): "
+              f"rel err {e!r}")
+        check(e <= KERNEL_RTOL, f"gel {name} vs CSR {e!r}")
+    Ax, Aty = blk.matvec(x), blk.rmatvec(y)
+    gap = abs(float(Ax.double() @ y.double())
+              - float(x.double() @ Aty.double()))
+    adj = gap / float(Ax.double().norm() * y.double().norm())
+    print(f"[12b] adjointness {adj!r}")
+    check(adj <= KERNEL_RTOL, f"gel adjointness {adj!r}")
+    bk.reset_launch_counts()
+    blk.matvec(x)
+    blk.rmatvec(y)
+    blk.normal_matvec(x)
+    per = dict(bk.launch_counts)
+    check(per == {"banded_fwd": 1, "banded_adj": 1, "banded_ata": 1},
+          f"gel: one launch per apply over the frames: {per}")
+
+    # K1-K3 per apply over the frames: device ms, bound, plain, CSR product
+    # (before any solver's profile: a session taken after the solvers'
+    # saw no device time on the card, ROADMAP Queue 3 item 18)
+    names = tuple(REPLACES)
+    timed = {k + sfx: checked_ms((lambda f, a: lambda: f(*a))(
+        getattr(bk, k + "_buckets" + sfx), args[k]), 2 if sfx else 10)
+        for k in names for sfx in ("", "_ref")}
+    ms = {k: timed[k][0] for k in names}
+    plain = {k: timed[k + "_ref"][0] for k in names}
+    # least bytes: the pack (W, S, Pm) and angle ids once, the images and
+    # sinograms in and out once; 2 flops per nonzero weight, frame and pass
+    pack = sum(nbytes(*k[:4]) for k in op._bks)
+    ids = nbytes(*op._aidx)
+    nz = sum(int((k[0] != 0).sum()) for k in op._bks) * nt
+    img, sino = nbytes(X), nbytes(Y)
+    bounds = {"banded_ata": bound(pack + 2 * img, 4 * nz, F32_FLOPS),
+              "banded_fwd": bound(pack + ids + img + sino, 2 * nz, F32_FLOPS),
+              "banded_adj": bound(pack + ids + sino + img, 2 * nz, F32_FLOPS)}
+    M = A.astype(np.float32).tocsr()
+    MT = M.T.tocsr()
+    (Mt, idx), (MTt, _) = library_csr(M, dev), library_csr(MT, dev)
+    xv = torch.randn(M.shape[1], device=dev, generator=gen)
+    yv = torch.randn(M.shape[0], device=dev, generator=gen)
+    e_lib = max(rel(Mt @ xv, blk.matvec(xv)), rel(MTt @ yv, blk.rmatvec(yv)))
+    check(e_lib <= KERNEL_RTOL, f"gel block-diagonal CSR vs the pack {e_lib!r}")
+    lib_runs = {"banded_fwd": lambda: Mt @ xv, "banded_adj": lambda: MTt @ yv,
+                "banded_ata": lambda: MTt @ (Mt @ xv)}
+    lib_timed = {k: checked_ms(f, 10) for k, f in lib_runs.items()}
+    library_ms = {k: v[0] for k, v in lib_timed.items()}
+    print(f"[12b] one apply over {nt} frames ({pack} B of pack, {nz} nonzero "
+          f"weights x frames), device ms ("
+          + ", ".join(f"{k} {v[1]}" for k, v in {**timed, **{
+              "csr " + k: v for k, v in lib_timed.items()}}.items())
+          + "): " + "; ".join(
+              f"{k} {ms[k]!r} (bound {bounds[k][0]!r}, {bounds[k][1]}; plain "
+              f"{plain[k]!r}; block-diagonal CSR {library_ms[k]!r})"
+              for k in names)
+          + f"; CSR ({idx} indices, nnz {M.nnz}) agrees with the pack to "
+          f"{e_lib!r}; card {card}")
+    # the solvers: counts from 0 just before, read just after
+    bv = torch.tensor(b, dtype=torch.float32, device=dev)
+    x0 = torch.zeros(blk.shape[1], dtype=torch.float32, device=dev)
+    x_true = X_true.reshape(-1)
+    its = GEL_ITERS
+    solves = {
+        "CGLS": (lambda: CGLS(blk, bv, x0, its["CGLS"], TOL)[0],
+                 lambda info: (its["CGLS"] + 1, its["CGLS"] + 1, 0)),
+        "cgls_normal": (lambda: cgls_normal(blk, bv, x0,
+                                            its["cgls_normal"])[0],
+                        lambda info: (0, 1, its["cgls_normal"] + 1)),
+        "Hybrid LSQR gcv": (lambda: Hybrid_LSQR(
+            blk, bv, n_iter=its["Hybrid LSQR gcv"], regparam="gcv"),
+            lambda info: (info["matvec_count"] // 2,
+                          info["matvec_count"] // 2, 0)),
+    }
+    walls, fns = {}, {}
+    bk.reset_launch_counts()
+    for name, (fn, expect) in solves.items():
+        before = dict(bk.launch_counts)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[name] = (time.perf_counter() - t) / its[name] * 1e3
+        xs, info = out if isinstance(out, tuple) else (out, None)
+        got = {k: bk.launch_counts[k] - before[k] for k in before}
+        want = expect(info)
+        xs = xs.double().cpu().numpy().reshape(-1)
+        check(xs.shape == x_true.shape and np.isfinite(xs).all(),
+              f"gel {name} solution")
+        err = float(np.linalg.norm(xs - x_true) / np.linalg.norm(x_true))
+        ref = JAX_GEL_RELERR[name]
+        print(f"[12b] {name}: relError final {err!r} (JAX CPU {ref!r}, gate "
+              f"{GEL_GATE}); launches {got} (expected K2, K3, K1 {want}); "
+              f"wall {walls[name]!r} ms/iter ({its[name]} iterations, set-up "
+              f"included); card {card}")
+        check((got["banded_fwd"], got["banded_adj"], got["banded_ata"])
+              == want, f"gel {name} launches {got} vs {want}")
+        check(abs(err - ref) <= GEL_GATE, f"gel {name} final relError {err!r}")
+        fns[name] = fn
+    launches = dict(bk.launch_counts)
+    print(f"[12b] launches in the gel path: {launches}")
+    check(all(v > 0 for v in launches.values()),
+          "a kernel never launched in the gel path")
+    for name, fn in fns.items():
+        parts = {}
+        try:
+            busy = device_ms(fn, 1, parts, sessions=1) / its[name]
+        except RuntimeError as e:  # ROADMAP Queue 3 item 18
+            print(f"[12b] {name}: device busy not measured ({e}); wall "
+                  f"{walls[name] * 1e3!r} us/iter; card {card}")
+            continue
+        top = sorted(parts.items(), key=lambda kv: -kv[1])[:5]
+        print(f"[12b] {name}: device busy {busy * 1e3!r} us/iter, wall "
+              f"{walls[name] * 1e3!r} us/iter, idle share "
+              f"{1 - busy / walls[name]!r}; busy by kernel (us/iter): "
+              + ", ".join(f"{k} {v / its[name] * 1e3!r}" for k, v in top)
+              + f"; card {card}")
+
+    return [{"name": k + "_gel", "route": "cuda",
+             "source": "trips_tpu_torch/csrc/banded.cu",
+             "replaces": REPLACES[k], "launches": launches[k],
+             "max_abs_err": max_abs[k], "ms": ms[k], "plain_ms": plain[k],
+             "timing": timed[k][1],
+             "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
+             "library_ms": library_ms[k],
+             "path": f"gelPhantom, {nt} frames of {nx}x{nx}, {na} angles, "
+                     f"BatchedBlockDiagOperator over one float32 pack",
+             "library": f"block-diagonal float32 CSR "
+                        f"(torch.sparse_csr_tensor, {idx} indices)"}
+            for k in names]
+
+
+def demo_twins(dev, card):
+    """Phase 12c-d: the twins of demos/demo_l_curve.py and
+    demo_small_scale_cgls.py at their defaults, on the card."""
+    import torch
+
+    from trips_tpu_torch.demos import demo_l_curve, demo_small_scale_cgls
+    from trips_tpu_torch.sparse import banded_kernels as bk
+
+    bk.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = demo_l_curve.main(["--device", str(dev)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    got = dict(bk.launch_counts)
+    # GKS: golub_kahan over 3 steps, A.matmat(V), then a K3 and a K2 an
+    # iteration; MMGKS: the same set-up and A.rmatvec(b), then two K2 and
+    # a K3 an iteration; the hybrids count their own applies
+    n, d = 20, 3
+    want = [0, 0]
+    for name, (_, _, info) in res.items():
+        if name.startswith("GKS"):
+            k2, k3 = d + 1 + n, d + n
+        elif name.startswith("MMGKS"):
+            k2, k3 = d + 1 + 2 * n, d + 1 + n
+        else:
+            k2 = k3 = info["matvec_count"] // 2
+        want[0] += k2
+        want[1] += k3
+    for name, (err, lam, _) in res.items():
+        ref, ref_lam = JAX_LCURVE[name]
+        print(f"[12c] demo_l_curve {name}: relError final {err!r} (JAX CPU "
+              f"float32 {ref!r}, gate {LCURVE_GATE}; float64 "
+              f"{JAX_LCURVE_F64[name][0]!r}), lambda {lam!r} (JAX float32 "
+              f"{ref_lam!r}, float64 {JAX_LCURVE_F64[name][1]!r})")
+        check(abs(err - ref) <= LCURVE_GATE,
+              f"demo_l_curve {name} final relError {err!r}")
+    print(f"[12c] demo_l_curve: launches {got} (expected K2 {want[0]}, K3 "
+          f"{want[1]}), {wall:.2f} s for the six solves and the problem; "
+          f"card {card}")
+    check((got["banded_fwd"], got["banded_adj"]) == tuple(want)
+          and got["banded_ata"] == 0, f"demo_l_curve launches {got}")
+    # the six solves again, walled, then profiled (one session)
+    OP, b, L, delta, _, _ = demo_l_curve.problem(64, 30, dev)
+    bv = torch.tensor(b, dtype=torch.float32, device=dev)
+    runs = demo_l_curve.solves(OP, bv, L, delta, n)
+
+    def six():
+        for solve in runs.values():
+            solve()
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    six()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) * 1e3
+    parts = {}
+    try:
+        busy = device_ms(six, 1, parts, sessions=1, warm=False)
+    except RuntimeError as e:  # ROADMAP Queue 3 item 18
+        print(f"[12c] demo_l_curve's six solves: wall {wall!r} ms, device "
+              f"busy not measured ({e}); card {card}")
+    else:
+        top = sorted(parts.items(), key=lambda kv: -kv[1])[:5]
+        print(f"[12c] demo_l_curve's six solves ({6 * n} iterations): wall "
+              f"{wall!r} ms, device busy {busy!r} ms, idle share "
+              f"{1 - busy / wall!r}; busy by kernel (ms): "
+              + ", ".join(f"{k} {v!r}" for k, v in top) + f"; card {card}")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    _, info = demo_small_scale_cgls.main(["--device", str(dev)])
+    torch.cuda.synchronize()
+    err = float(info["relError"][-1])
+    print(f"[12d] demo_small_scale_cgls: its {info['its']} (JAX "
+          f"{JAX_SMALL_CGLS[0]}), relError final {err!r} (JAX CPU "
+          f"{JAX_SMALL_CGLS[1]!r}, gate {LCURVE_GATE}); "
+          f"{time.perf_counter() - t:.2f} s")
+    check(info["its"] == JAX_SMALL_CGLS[0], "demo_small_scale_cgls its")
+    check(abs(err - JAX_SMALL_CGLS[1]) <= LCURVE_GATE,
+          f"demo_small_scale_cgls final relError {err!r}")
+
+
+def bsr_checks(dev, card, A):
+    """Phase 12e: ``BsrOperator`` on tomo256x60's matrix with float32,
+    bfloat16 and int8 blocks against the host product of its stored
+    values, each apply's device ms beside the exact ``CsrOperator``'s."""
+    import torch
+
+    from trips_tpu_torch.sparse import BsrOperator, CsrOperator
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    x = torch.randn(A.shape[1], device=dev, generator=gen)
+    y = torch.randn(A.shape[0], device=dev, generator=gen)
+    xd, yd = x.double().cpu().numpy(), y.double().cpu().numpy()
+    ops = {"csr float32": CsrOperator.from_scipy(A, dtype=torch.float32,
+                                                 device=dev)}
+    for block in (None, "bfloat16", "int8"):
+        ops[f"bsr {block or 'float32'}"] = BsrOperator.from_scipy(
+            A, dtype=np.float32, block_dtype=block, device=dev)
+    for name, op in ops.items():
+        M = CsrOperator.to_scipy(op).astype(np.float64)
+        errs = {fn: rel(getattr(op, fn)(v).cpu(), torch.from_numpy(ref))
+                for fn, v, ref in (("matvec", x, M @ xd),
+                                   ("rmatvec", y, M.T @ yd))}
+        t = {fn: checked_ms((lambda f, v: lambda: f(v))(getattr(op, fn), v),
+                            10) for fn, v in (("matvec", x), ("rmatvec", y))}
+        extra = (f", stored bytes (JAX's blocks) {op.stored_bytes}, density "
+                 f"{op.stored_density!r}" if name.startswith("bsr") else "")
+        print(f"[12e] {name}: vs the host product of its stored values, rel "
+              f"err {errs}; device ms matvec {t['matvec'][0]!r} "
+              f"({t['matvec'][1]}), rmatvec {t['rmatvec'][0]!r} "
+              f"({t['rmatvec'][1]}){extra}; card {card}")
+        check(max(errs.values()) <= KERNEL_RTOL, f"{name} {errs}")
+
+
+def phase12(dev, card, gen, A, dyn):
+    """Phase 12: the C++ builder, the gelPhantom path, the two demo twins,
+    ``BsrOperator``, ``iters_to_tol``. -> the gel path's kernel entries."""
+    from trips_tpu_torch.bench import iters_to_tol
+
+    t0 = time.perf_counter()
+    builder_checks(dev, card, A, dyn)
+    secs = {"a": time.perf_counter() - t0}
+    with numpy_builder(False):
+        entries = gel_path(dev, card, gen)
+        secs["b"] = time.perf_counter() - t0 - sum(secs.values())
+        demo_twins(dev, card)
+        secs["c-d"] = time.perf_counter() - t0 - sum(secs.values())
+        bsr_checks(dev, card, A)
+        secs["e"] = time.perf_counter() - t0 - sum(secs.values())
+        rows = iters_to_tol.compare(device=dev)
+    print(f"[12f] iters_to_tol.compare on the card (float64 ELL): {rows}; "
+          f"JAX CPU float64 (name, reference, trips_tpu) {JAX_ITERS_TO_TOL}")
+    for (name, k_ref, k), (jname, jk_ref, _) in zip(rows, JAX_ITERS_TO_TOL):
+        check(name == jname and k_ref == jk_ref
+              and abs(k - k_ref) <= max(2, int(0.05 * k_ref)),
+              f"iters_to_tol {name}: {k} against {k_ref}")
+    secs["f"] = time.perf_counter() - t0 - sum(secs.values())
+    print(f"[12] took {time.perf_counter() - t0:.1f} s (by part: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in secs.items())
+          + f"); card {card}")
+    return entries
+
+
 def main():
     import torch
 
@@ -2488,6 +3119,9 @@ def main():
     from trips_tpu_torch.sparse import BandedProjector
     from trips_tpu_torch.sparse import banded_kernels as bk
 
+    # phases 2-11 hold the port to JAX numbers made with the NumPy matrix
+    # builder; phase 12 builds with the C++ one
+    os.environ["TRIPS_TPU_NO_NATIVE"] = "1"
     dev = torch.device("cuda")
     card = smi("name,power.limit")
     print(card)  # nvidia-smi's own line: name, power limit
@@ -3261,6 +3895,8 @@ def main():
                 "per apply, world 1 (NCCL)": world1[w1][a],
                 "per apply, world 2 (gloo, one card), ranks 0 and 1":
                     [r[a][k] for r in world2[w2]]}
+    # ---- 12. the C++ builder, gelPhantom, the demo twins, BSR -----------
+    kernels += phase12(dev, card, gen, A, dyn)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

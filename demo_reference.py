@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Reference relErrors of the demos' regularized solvers on the CPU, for
-the gates of ``chip_smoke.py`` [6] and [7].
+the gates of ``chip_smoke.py`` [6]-[12].
 
     python3 demo_reference.py jax      # trips_tpu, through the demo's own code
     python3 demo_reference.py torch    # trips_tpu_torch, float32, plain K2/K3
@@ -20,6 +20,11 @@ the gates of ``chip_smoke.py`` [6] and [7].
                                        # operator's CGLS, x64 off
     python3 demo_reference.py batched  # trips_tpu, batched_frame_solve
                                        # in float64
+    python3 demo_reference.py gel      # trips_tpu, gelPhantom's solvers
+                                       # on chip_smoke.py's bundle, x64 off
+    python3 demo_reference.py l_curve  # trips_tpu, the L-curve and
+                                       # small-scale CGLS demos, x64 off
+    python3 demo_reference.py l_curve64  # the same in float64
 
 Both run ``demos/demo_tomography.py --large`` (grains phantom, 256x256, 60
 views, Gaussian noise 0.001 after ``np.random.seed(0)``) with 30
@@ -99,6 +104,26 @@ prints the final relError. ``batched``: x64 on, ``batched_frame_solve``
 over the frames' float64 matrices with ``FirstDerivative2D``: fused MMGKS
 with GCV (``projection_dim=3``, 10 iterations) and fused GKS with DP at
 ``delta / nt``; it prints each frame's final relError.
+
+The ``gel`` mode (about 20 s) writes ``chip_smoke.py``'s synthetic
+gelPhantom bundle (``gel_bundle``, through ``trips_tpu_torch``'s NumPy
+builder) into a temporary directory and runs, through ``trips_tpu`` with
+x64 off and the NumPy matrix builder, ``generate_gelPhantom(nx=256,
+angle_step=20)`` and over ``BatchedBlockDiagOperator`` of
+``device_sparse_operator``'s choice on the CPU (``EllOperator``) CGLS
+(30 iterations), ``cgls_normal`` (30) and Hybrid LSQR with GCV (20); it
+prints ||b|| and each final relError (``chip_smoke.py`` [12b]).
+
+The ``l_curve`` mode (about 35 s) runs ``demos/demo_l_curve.py``'s
+sequence at its defaults (64x64 tectonic, 30 views, 1% noise after
+``np.random.seed(0)``, 20 iterations: GKS and MMGKS p=2 q=1 with the
+L-curve and DP, Hybrid LSQR with GCV and the L-curve; ``trips_tpu``'s
+default C++ matrix builder, as the demo runs), then
+``demos/demo_small_scale_cgls.py``'s (50x50 ``h_im``, 50 iterations, tol
+1e-3) and ``trips_tpu.bench.iters_to_tol.compare()``, all with x64 off;
+``l_curve64`` (about 35 s) the same with x64 on. They print each final
+relError and lambda, CGLS's ``its`` and the iteration rows
+(``chip_smoke.py`` [12c], [12d], [12f]).
 """
 import contextlib
 import os
@@ -771,15 +796,142 @@ def run_batched():
               f"{time.time() - t:.1f} s", flush=True)
 
 
+GEL_ITERS = {"CGLS": 30, "cgls_normal": 30, "Hybrid LSQR gcv": 20}
+
+
+def run_gel():
+    os.environ["TRIPS_TPU_NO_NATIVE"] = "1"
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    sys.path.insert(0, str(ROOT))
+    import tempfile
+
+    import jax
+    import jax.numpy as jnp
+
+    from chip_smoke import GEL, gel_bundle
+    from trips_tpu.core.linop import BatchedBlockDiagOperator
+    from trips_tpu.krylov import cgls_normal
+    from trips_tpu.problems import device_sparse_operator, generate_gelPhantom
+    from trips_tpu.problems.gelphantom import read_frames
+    from trips_tpu.solvers import CGLS, Hybrid_LSQR
+
+    print("x64", jax.config.jax_enable_x64, jax.__version__, flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        X = gel_bundle(f"{tmp}/GelPhantomData_b4.mat")
+        A, b, AA, B, nx, ny, nt = generate_gelPhantom(
+            nx=GEL["nx"], angle_step=GEL["step"], data_dir=tmp)
+        angles = read_frames(f"{tmp}/GelPhantomData_b4.mat")["angles"]
+    keep = np.arange(0, GEL["n_angles"], GEL["step"])
+    x_true = X.reshape(-1)
+    op = BatchedBlockDiagOperator(device_sparse_operator(
+        AA[0], nx=nx, angles=angles[keep]), nt)
+    print("||b||", repr(float(np.linalg.norm(b))), "nnz of a frame",
+          AA[0].nnz, type(op.op).__name__, flush=True)
+
+    def relerr(x):
+        x = np.asarray(x, np.float64).reshape(-1)
+        return float(np.linalg.norm(x - x_true) / np.linalg.norm(x_true))
+
+    bj = jnp.asarray(b, jnp.float32)
+    x0 = jnp.zeros(op.shape[1], jnp.float32)
+    runs = {
+        "CGLS": lambda: CGLS(op, bj, x0, GEL_ITERS["CGLS"], 1e-6,
+                             x_true=x_true)[0],
+        "cgls_normal": lambda: cgls_normal(op, bj, x0,
+                                           GEL_ITERS["cgls_normal"])[0],
+        "Hybrid LSQR gcv": lambda: Hybrid_LSQR(
+            op, bj, n_iter=GEL_ITERS["Hybrid LSQR gcv"], regparam="gcv",
+            x_true=x_true)[0],
+    }
+    for name, fn in runs.items():
+        t = time.time()
+        print(name, "final relError", repr(relerr(fn())),
+              f"{time.time() - t:.1f} s", flush=True)
+
+
+def run_l_curve(x64=False):
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    os.environ.pop("TRIPS_TPU_NO_NATIVE", None)
+    sys.path.insert(0, str(ROOT))
+    import jax
+
+    jax.config.update("jax_enable_x64", x64)
+    from trips_tpu.core.linop import ScaledOperator, VStackOperator
+    from trips_tpu.operators import FirstDerivative2D
+    from trips_tpu.problems import Deblurring2D, Tomography
+    from trips_tpu.solvers import CGLS, GKS, MMGKS, Hybrid_LSQR
+    from trips_tpu.solvers._common import as_op
+
+    print("x64", jax.config.jax_enable_x64, jax.__version__, flush=True)
+
+    def relerr(x, xt):
+        x, xt = np.asarray(x).reshape(-1), np.asarray(xt).reshape(-1)
+        return float(np.linalg.norm(x - xt) / np.linalg.norm(xt))
+
+    # demos/demo_l_curve.py at its defaults (64x64, 30 views, 20 iterations)
+    np.random.seed(0)
+    tomo = Tomography(CommitCrime=False)
+    x_true, nx, ny = tomo.gen_true("tectonic", nx=64, ny=64)
+    OP, b, p, q, A = tomo.gen_data(x_true, nx, ny, 30)
+    b_noisy, delta = tomo.add_noise(b, "Gaussian", 0.01)
+    delta = float(delta)
+    bv = b_noisy.reshape(-1)
+    L = FirstDerivative2D(nx, ny)
+    print("||b||", repr(float(np.linalg.norm(bv))), "delta", repr(delta),
+          type(OP).__name__, flush=True)
+    runs = {}
+    for rp in ["l_curve", "dp"]:
+        runs[f"GKS ({rp})"] = lambda rp=rp: GKS(
+            OP, bv, L, projection_dim=3, n_iter=20, regparam=rp, delta=delta)
+        runs[f"MMGKS ({rp})"] = lambda rp=rp: MMGKS(
+            OP, bv, L, pnorm=2, qnorm=1, projection_dim=3, n_iter=20,
+            regparam=rp, delta=delta)
+    for rp in ["gcv", "l_curve"]:
+        runs[f"Hybrid LSQR ({rp})"] = lambda rp=rp: Hybrid_LSQR(
+            OP, bv, n_iter=20, regparam=rp, delta=delta)
+    for name, fn in runs.items():
+        t = time.time()
+        x, info = fn()
+        print(name, "final relError", repr(relerr(x, x_true)), "lam",
+              repr(float(info["regParam"])), f"{time.time() - t:.1f} s",
+              flush=True)
+
+    # demos/demo_small_scale_cgls.py at its defaults (50x50, 50 iterations)
+    np.random.seed(0)
+    prob = Deblurring2D()
+    Ab = prob.forward_Op([3, 3], (1, 1), 50, 50)
+    x_true = prob.gen_true("h_im", nx=50, ny=50)
+    b_true = prob.gen_data(np.asarray(x_true).reshape(-1, 1))
+    b, _ = prob.add_noise(b_true, "Gaussian", 0.01)
+    bv = np.asarray(b).reshape(-1)
+    L = FirstDerivative2D(50, 50)
+    Ahat = VStackOperator([as_op(Ab), ScaledOperator(np.sqrt(0.01),
+                                                     as_op(L))])
+    bhat = np.concatenate([bv, np.zeros(L.shape[0])])
+    x0 = np.asarray(as_op(Ab).rmatvec(bv))
+    x, info = CGLS(Ahat, bhat, x0, max_iter=50, tol=1e-3,
+                   x_true=np.asarray(x_true).reshape(-1))
+    print("small-scale CGLS its", info["its"], "final relError",
+          repr(float(info["relError"][-1])), flush=True)
+
+    from trips_tpu.bench.iters_to_tol import compare
+
+    print("iters_to_tol rows (name, reference, trips_tpu)", compare(),
+          flush=True)
+
+
 if __name__ == "__main__":
     modes = {"jax": run_jax, "torch": run_torch, "dynamic": run_dynamic,
              "fused": run_fused, "fused64": lambda: run_fused(x64=True),
              "fused_torch": run_fused_torch, "deblur": run_deblur,
              "deblur64": lambda: run_deblur(x64=True),
              "deblur_probe": run_deblur_probe, "streamed": run_streamed,
-             "batched": run_batched}
+             "batched": run_batched, "gel": run_gel,
+             "l_curve": run_l_curve,
+             "l_curve64": lambda: run_l_curve(x64=True)}
     if len(sys.argv) != 2 or sys.argv[1] not in modes:
         sys.exit(f"usage: {sys.argv[0]} "
                  "jax|torch|dynamic|fused|fused64|fused_torch|deblur|"
-                 "deblur64|deblur_probe|streamed|batched")
+                 "deblur64|deblur_probe|streamed|batched|gel|l_curve|"
+                 "l_curve64")
     modes[sys.argv[1]]()

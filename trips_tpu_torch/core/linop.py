@@ -22,8 +22,17 @@ class LinearOperator:
     implement ``matvec``/``rmatvec``."""
 
     shape: tuple
-    dtype: torch.dtype = torch.float32
     device: torch.device = torch.device("cpu")
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The dtype the operator computes in (a storage class such as
+        int8 weights computes in float32); float32 unless set."""
+        return self.__dict__.get("_dtype", torch.float32)
+
+    @dtype.setter
+    def dtype(self, value):
+        self._dtype = value
 
     def matvec(self, x):
         raise NotImplementedError
@@ -66,6 +75,11 @@ class LinearOperator:
         only)."""
         n = self.shape[1]
         return self.matmat(torch.eye(n, dtype=self.dtype, device=self.device))
+
+    def to_scipy(self):
+        """The operator as a dense NumPy matrix, through ``todense`` (for
+        oracle tests; small operators only)."""
+        return self.todense().cpu().numpy()
 
 
 class AdjointOperator(LinearOperator):

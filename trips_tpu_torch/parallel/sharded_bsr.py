@@ -15,22 +15,14 @@ store and refuses the same matrices.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from ..config import round_up
 from ..core.device import DEFAULT, resolve
 from ..core.linop import LinearOperator
-from ..sparse.csr import CsrOperator, _torch_dtype
+from ..sparse.bsr import _count_blocks, _itemsize, _values
+from ..sparse.csr import CsrOperator
 from .sharding import all_reduce, share
-
-
-def _count_blocks(A, br, bc):
-    """Nonzero-block count without materializing the blocks (cheap)."""
-    coo = A.tocoo()
-    nbk = -(-A.shape[1] // bc)
-    bid = (coo.row // br).astype(np.int64) * nbk + coo.col // bc
-    return len(np.unique(bid))
 
 
 def _check_stored_budget(n_blocks, br, bc, itemsize, nnz, max_stored_gb,
@@ -47,23 +39,6 @@ def _check_stored_budget(n_blocks, br, bc, itemsize, nnz, max_stored_gb,
             f"block storage — use the banded pack "
             f"(sparse.BandedProjector) or ELL "
             f"(parallel.ShardedDynamicOperator), or raise max_stored_gb.")
-
-
-def _values(A, block_dtype):
-    """``A`` as float32 CSR, its values rounded to ``block_dtype`` (None or
-    float32: unchanged; bfloat16: to nearest even) and kept float32."""
-    from scipy import sparse as sp
-
-    A = sp.csr_matrix(A).astype(np.float32)
-    A.sum_duplicates()
-    if block_dtype is not None:
-        A.data = torch.from_numpy(A.data).to(_torch_dtype(block_dtype)
-                                             ).float().numpy()
-    return A
-
-
-def _itemsize(block_dtype):
-    return _torch_dtype(block_dtype or np.float32).itemsize
 
 
 def _part(M, rows, shape, device):

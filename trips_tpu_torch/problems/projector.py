@@ -1,10 +1,14 @@
-"""Fan- and parallel-beam projector matrices (host NumPy; ASTRA
-'line_fanflat' / 'parallel' replacement).
+"""Fan- and parallel-beam projector matrices (host; ASTRA
+'line_fanflat' / 'parallel' replacement), and the closed-form sinogram of
+ellipses that holds them.
 
-The NumPy paths of ``trips_tpu/problems/projector.py`` ``fan_beam_matrix``
-and ``parallel_beam_matrix``, copied as they are: the same arguments give
-the same CSR matrix as that module's NumPy paths (its optional C++ builder
-does not).
+A copy of ``trips_tpu/problems/projector.py``. As there, the Siddon
+matrices come from the C++ builder (``trips_tpu_torch.native``) unless
+``TRIPS_TPU_NO_NATIVE=1`` selects the NumPy path; each path gives the same
+CSR matrix as the JAX package's path of the same name (the C++ libraries
+to roundoff, 1e-12 relative). The two paths differ by roundoff, and in
+which of the two squares beside a grid line they put the chord of a ray
+that runs along the line.
 
 Geometry conventions (pixel size 1, image centred at the origin):
 - image column j centre x = -nx/2 + j + 1/2, row i centre y = ny/2 - i - 1/2
@@ -103,6 +107,13 @@ def fan_beam_matrix(nx, ny=None, angles=None, det_count=None, det_width=None,
     od = origin_det if origin_det is not None else nx
     d = det_width if det_width is not None else (so + od) / so
 
+    from ..native import fan_beam_csr_native
+
+    A_native = fan_beam_csr_native(nx, ny, angles, p, d, so, od)
+    if A_native is not None:
+        A_native.sum_duplicates()
+        return A_native
+
     rows, cols, vals = [], [], []
     offs = (np.arange(p) - (p - 1) / 2) * d
     for ai, th in enumerate(angles):
@@ -134,6 +145,13 @@ def parallel_beam_matrix(nx, angles, det_count=None, det_width=1.0,
     ny = ny or nx
     angles = np.asarray(angles, dtype=float)
     p = det_count if det_count is not None else nx
+    if model == "line":
+        from ..native import parallel_beam_csr_native
+
+        A_native = parallel_beam_csr_native(nx, ny, angles, p, det_width)
+        if A_native is not None:
+            A_native.sum_duplicates()
+            return A_native
     offs = (np.arange(p) - (p - 1) / 2) * det_width
     far = 2.0 * (nx + ny)
 
@@ -201,3 +219,68 @@ def _joseph_parallel(th, offs, nx, ny):
         np.concatenate(cols_out),
         np.concatenate(vals_out),
     )
+
+
+def analytic_sinogram(ellipses, nx, geometry="fan", angles=None,
+                      views=None, det_count=None, det_width=None,
+                      source_origin=None, origin_det=None, ny=None):
+    """Closed-form sinogram of a sum of constant-density ellipses: an
+    oracle for the discrete projectors that shares no code with them.
+
+    ``ellipses``: iterable of (rho, a, b, cx, cy, phi_rad) in PIXEL units
+    with the module's image coordinates (origin at the image center,
+    x right / y up). For each ray the integral of the indicator of an
+    ellipse is the chord length: map the ray into the ellipse's unit-disk
+    frame, solve the quadratic |O' + t v'|^2 = 1, and scale the t-interval
+    back by |v|. Rays are constructed with EXACTLY the same geometry
+    parametrization as ``fan_beam_matrix`` / ``parallel_beam_matrix``
+    ('line' model; Tomography.py:49-60 conventions), so a discrete
+    ``A @ x`` with x the pixel-center rasterization must converge to this
+    under grid refinement.
+
+    Returns an (n_angles, p) float64 array.
+    """
+    ny = ny or nx
+    if angles is None:
+        angles = np.linspace(0, np.pi, views, endpoint=False)
+    angles = np.asarray(angles, dtype=float)
+    if geometry == "fan":
+        p = det_count if det_count is not None else int(np.sqrt(2) * nx)
+        so = source_origin if source_origin is not None else 3 * nx
+        od = origin_det if origin_det is not None else nx
+        d = det_width if det_width is not None else (so + od) / so
+    else:
+        p = det_count if det_count is not None else nx
+        d = det_width if det_width is not None else 1.0
+    offs = (np.arange(p) - (p - 1) / 2) * d
+
+    out = np.zeros((len(angles), p))
+    for ai, th in enumerate(angles):
+        if geometry == "fan":
+            S = np.array([so * np.sin(th), -so * np.cos(th)])
+            D0 = np.array([-od * np.sin(th), od * np.cos(th)])
+            u = np.array([np.cos(th), np.sin(th)])
+            O = np.broadcast_to(S, (p, 2))
+            V = D0[None, :] + offs[:, None] * u[None, :] - S[None, :]
+        else:
+            u = np.array([np.cos(th), np.sin(th)])
+            dvec = np.array([np.sin(th), -np.cos(th)])
+            far = 2.0 * (nx + ny)
+            O = -far * dvec[None, :] + offs[:, None] * u[None, :]
+            V = np.broadcast_to(dvec, (p, 2))
+        vnorm = np.linalg.norm(V, axis=1)
+        for rho, a, b, cx, cy, phi in ellipses:
+            c, s = np.cos(phi), np.sin(phi)
+            R = np.array([[c, s], [-s, c]])  # world -> ellipse frame
+            M = np.diag([1.0 / a, 1.0 / b]) @ R
+            Op = (O - np.array([cx, cy])[None, :]) @ M.T
+            Vp = V @ M.T
+            A2 = np.einsum("ij,ij->i", Vp, Vp)
+            B2 = 2.0 * np.einsum("ij,ij->i", Op, Vp)
+            C2 = np.einsum("ij,ij->i", Op, Op) - 1.0
+            disc = B2 * B2 - 4.0 * A2 * C2
+            hit = disc > 0
+            dt = np.zeros(p)
+            dt[hit] = np.sqrt(disc[hit]) / A2[hit]
+            out[ai] += rho * dt * vnorm
+    return out

@@ -17,24 +17,50 @@ import scipy.linalg as sla
 import torch
 
 from ..core.device import DEFAULT, resolve
-from ..sparse import BucketedBandedProjector, CsrOperator
+from ..sparse import (BsrOperator, BucketedBandedProjector, CsrOperator,
+                      EllOperator)
+from ..sparse.banded_buckets import _storage
+from ..sparse.bsr import _values
 from ..utils.images import image_to_new_size, load_image_mat
 from . import phantoms as phantom
 from .projector import fan_beam_matrix
 
 
-def device_sparse_operator(A_csr, dtype=np.float32, nx=None, angles=None,
+def device_sparse_operator(A_csr, prefer_bsr=None, dtype=np.float32,
+                           nx=None, angles=None, prefer=None,
                            device=DEFAULT):
-    """Pack a host CSR fan/parallel matrix as the bucketed banded operator
-    (32 line groups, 4 buckets) on ``device`` (the card unless "cpu" is
-    asked for). ``dtype``: float32 (the exact matrix), bfloat16 or "int8".
-    Where the pack does not apply (no square-grid geometry: ``nx`` and
-    ``angles`` missing or ``A_csr`` not ``(m, nx*nx)``; or a geometry the
-    pack refuses), the matrix becomes a ``CsrOperator``, where the JAX
-    package falls back to ELL or BSR. The CSR operator holds the exact
-    float32 matrix whatever ``dtype`` asks for: torch has no bfloat16 or
-    scaled int8 CSR product to give it."""
+    """Wrap a host CSR matrix as a device operator on ``device`` (the card
+    unless "cpu" is asked for). ``dtype``: float32 (the exact matrix),
+    bfloat16 or "int8".
+
+    ``prefer`` forces 'banded' | 'bsr' | 'ell'; the legacy ``prefer_bsr``
+    means 'bsr' when true and 'ell' when false. With neither, the fan or
+    parallel geometry (``nx`` and ``angles``, ``A_csr`` of ``(m, nx*nx)``)
+    takes the bucketed banded pack (32 line groups, 4 buckets), the choice
+    JAX makes on a TPU; without it, or where the pack refuses the geometry,
+    the matrix becomes a ``CsrOperator`` of the exact float32 matrix
+    whatever ``dtype`` asks for (torch has no bfloat16 or scaled int8 CSR
+    product), where JAX takes BSR on a TPU and ELL elsewhere. 'banded'
+    falls back as the default does. 'bsr' is ``BsrOperator`` with
+    ``dtype``'s blocks (float32 values, bfloat16 or int8 blocks); 'ell'
+    is ``EllOperator`` of the float32 values, rounded to bfloat16 where
+    ``dtype`` asks for it (ELL has no int8 class)."""
     device = resolve(device)
+    if prefer is None and prefer_bsr is not None:  # legacy flag
+        prefer = "bsr" if prefer_bsr else "ell"
+    if prefer not in (None, "banded", "bsr", "ell"):
+        raise ValueError(f"prefer={prefer!r}: use 'banded', 'bsr' or 'ell'")
+    kind = _storage(dtype) if prefer in ("bsr", "ell") else None
+    if prefer == "bsr":
+        return BsrOperator.from_scipy(
+            A_csr, dtype=np.float32,
+            block_dtype=None if kind == "float32" else kind, device=device)
+    if prefer == "ell":
+        if kind == "int8":
+            raise ValueError("ELL stores float32 or bfloat16 values")
+        return EllOperator.from_scipy(
+            _values(A_csr, None if kind == "float32" else kind),
+            device=device)
     if nx is not None and angles is not None and A_csr.shape[1] == nx * nx:
         try:
             return BucketedBandedProjector.from_scipy_fan(

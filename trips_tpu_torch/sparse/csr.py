@@ -1,12 +1,13 @@
 """Compressed sparse row operator on torch tensors.
 
-Stands in for ``trips_tpu/sparse/ell.py`` (``EllOperator``) and
-``sparse/bsr.py``: padded ELL and block-sparse rows are layouts for the
-TPU's static shapes, computed there in plain XLA with no kernel of their
-own. On the card a CSR tensor is the natural layout and its product is
-cuSPARSE's. As the ELL operator does, it keeps the transpose as a matrix
-of its own, so ``rmatvec`` is a row-major product too (a product with the
-transposed CSR tensor is much slower on the card).
+The port's general sparse operator, where the JAX package takes ELL
+(``trips_tpu/sparse/ell.py``) or BSR (``sparse/bsr.py``): padded ELL and
+block-sparse rows are layouts for the TPU's static shapes, computed there
+in plain XLA with no kernel of their own. On the card a CSR tensor is the
+natural layout and its product is cuSPARSE's (``BsrOperator`` applies its
+stored blocks so). As the ELL operator does, it keeps the transpose as a
+matrix of its own, so ``rmatvec`` is a row-major product too (a product
+with the transposed CSR tensor is much slower on the card).
 """
 from __future__ import annotations
 
@@ -29,8 +30,12 @@ def _csr_tensor(M, dtype, device):
 
 
 def _torch_dtype(dtype):
+    """A torch dtype from a torch or NumPy dtype, a NumPy scalar type or a
+    name ("bfloat16", "int8", ...)."""
     if isinstance(dtype, torch.dtype):
         return dtype
+    if isinstance(dtype, str):
+        return getattr(torch, dtype)
     return getattr(torch, np.dtype(dtype).name)
 
 

@@ -13,9 +13,9 @@ the frame is an index of the launch grid, where the JAX package
 row of its frame's ``(views, p)`` sinogram, so a padded angle's id lies
 outside it and is dropped.
 
-The packs are made on the host with NumPy and hold the JAX package's bytes
-(its ``scatter_fill`` accelerator is not carried over: the NumPy fill it
-falls back to is the same).
+The packs are made on the host (``sparse/pack.py``, the weights filled by
+the C++ ``scatter_fill`` unless ``TRIPS_TPU_NO_NATIVE=1``) and hold the JAX
+package's bytes.
 """
 from __future__ import annotations
 
@@ -24,6 +24,7 @@ import torch
 
 from ..core.device import DEFAULT, resolve
 from ..core.linop import LinearOperator
+from ..native import scatter_fill
 from .banded_buckets import _storage, _to_torch, drive_images
 from .banded_kernels import (banded_adj_buckets, banded_ata_buckets,
                              banded_fwd_buckets)
@@ -58,7 +59,8 @@ def _pack_frames(AA, nx, angles_list, n_groups, lane_pad):
 def _fill(W, S, P, t, j, entry, p):
     """Frame t, stack slot j <- one angle's pack result."""
     (tt, ii, dd, vv), _, shift, Pk = entry
-    W[t, j][tt, ii, dd] = vv
+    if not scatter_fill(tt, ii, dd, vv, W[t, j]):
+        W[t, j][tt, ii, dd] = vv
     S[t, j] = shift
     P[t, j, :, :p] = Pk
     P[t, j, :, p:] = Pk[:, -1:]  # edge pad, as the flat stack pads

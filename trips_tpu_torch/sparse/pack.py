@@ -13,15 +13,24 @@ transposed image). Padded lines (``i >= nx``) and padded lanes
 (``d >= p``) carry zero weight, so an apply may wrap columns mod ``n_pad``
 without masks.
 
-The pack functions are NumPy copies of ``trips_tpu/sparse/banded.py``
-(without its native C++ accelerator) and give byte-identical stacks from the
-same CSR matrix. The applies on a packed group, and their plain versions
+The pack functions are copies of ``trips_tpu/sparse/banded.py`` and give
+byte-identical stacks from the same CSR matrix. As there, each angle's
+shear, predictor and taps, and the fill of its weights, run in the C++
+library (``trips_tpu_torch.native``, bit for bit the NumPy code beside it)
+unless ``TRIPS_TPU_NO_NATIVE=1`` selects the NumPy code. The applies on a
+packed group, and their plain versions
 (the twin of ``trips_tpu``'s ``apply_group_xla(..., wrap=True)``), are in
 ``banded_kernels.py``.
 """
 from __future__ import annotations
 
 import numpy as np
+
+from ..native import pack_angle, scatter_fill
+
+
+def sp_isspmatrix_csr_like(A):
+    return getattr(A, "format", None) == "csr"
 
 
 def _pack_angle(coo_d, coo_i, coo_c, coo_v, n, p, n_groups, n_pad=None):
@@ -32,6 +41,10 @@ def _pack_angle(coo_d, coo_i, coo_c, coo_v, n, p, n_groups, n_pad=None):
     column = shift[i] + P[g(i), d] + t.
     """
     n_pad = n if n_pad is None else n_pad
+    native = pack_angle(coo_d, coo_i, coo_c, n, p, n_groups, n_pad)
+    if native is not None:
+        t, shift, P, T_a = native
+        return (t, coo_i, coo_d, coo_v), T_a, shift, P
     # minimum observed column per (line, detector): cmin[i, d]
     cmin = np.full((n, p), np.iinfo(np.int32).max, np.int64)
     np.minimum.at(cmin, (coo_i, coo_d), coo_c)
@@ -105,7 +118,7 @@ def _pack_groups(A, nx, views, angles, n_groups):
     vals = (coo.data if coo.data.dtype == np.float32
             else coo.data.astype(np.float32))
     # angle-major rows: each angle is one contiguous slice of the COO
-    if getattr(A, "format", None) == "csr":
+    if sp_isspmatrix_csr_like(A):
         sorted_rows = True
         bounds = np.asarray(A.indptr)[np.arange(len(angles) + 1) * p]
     else:
@@ -131,7 +144,8 @@ def _stack_packs(group, n_pad, p, p_pad):
     T = max(T_a for _, T_a, _, _ in group)
     W = np.zeros((len(group), T, n_pad, p_pad), np.float32)
     for k, ((t, ii, dd, vv), _, _, _) in enumerate(group):
-        W[k, t, ii, dd] = vv
+        if not scatter_fill(t, ii, dd, vv, W[k]):
+            W[k, t, ii, dd] = vv
     S = np.stack([s for _, _, s, _ in group])
     P = np.stack([np.pad(pp, ((0, 0), (0, p_pad - p)), mode="edge")
                   for _, _, _, pp in group])
