@@ -16,7 +16,9 @@ run by raising:
    (256x256 image, 60 fan-beam views; banded: 32 line groups, 4 buckets
    per drive orientation, float32, bfloat16 and int8 packs, K1-K3 per
    bucket and over all buckets in one launch, as the operator calls them,
-   K2 the same to the bit from run to run; shear:
+   each the same to the bit from run to run (K2 sums in a fixed order, K1
+   and K3 back-project in fixed point), K3 of zeros zero and of a NaN all
+   NaN; shear:
    C = 400, p_pad = 384, float32 and bfloat16 ``G``; K4 and K5 the same to
    the bit from run to run); the float32 banded operator against the host
    CSR matrix; the float32 shear operator against itself on the CPU;
@@ -25,8 +27,8 @@ run by raising:
    ``krylov.cgls_normal``, held against the JAX package's results on the
    same inputs, with launch counts showing the kernels ran, and the
    launches of one ``matvec`` and one ``rmatvec``; the banded float32
-   ``cgls_normal`` run twice, its relError histories compared (K1 adds
-   with atomics: the card's run-to-run spread, printed, not gated);
+   ``cgls_normal`` run twice, its relError histories and final iterates
+   bitwise equal;
 4. times of each kernel against its plain version, the least time the
    card could take for the same work (``bound_ms``) and the library's
    call for the same function (device time from ``torch.profiler``): for
@@ -35,10 +37,10 @@ run by raising:
    and synchronized host clocks); K4 and K5 at each tile shape of
    ``shear_kernels.TILES`` (K5 also in chunks of 2, 4 and 8 views), each held
    against its plain version; where ``_local/parent`` holds another
-   checkout of the repository (``git archive``), its banded float32
-   ``cgls`` and ``cgls_normal`` loops (a host read of the stopping test
-   every iteration) in turns with these (one read per ``CHUNK``
-   iterations);
+   checkout of the repository (``git archive``), its K3 and K1 (built from
+   its ``csrc/``) in turns with these, per storage class (and in 7 per
+   dynamic pack, in 12b on the gel pack), and its banded float32
+   ``cgls`` and ``cgls_normal`` loops in turns with these;
 5. loop profiles of the solver paths that run K1-K6: device busy
    time per iteration by kernel (``torch.profiler``) against the wall time
    per iteration of the same solver in 4 (timed before any profiler
@@ -58,8 +60,9 @@ run by raising:
    ``DynamicBandedOperator`` (float32, 8 line groups) and
    ``BucketedDynamicBandedOperator`` (3 buckets; float32, bfloat16, int8),
    K1-K3 each over all frames and stacks in one launch against their plain
-   versions, the float32 applies against the host block-diagonal CSR matrix,
-   adjointness, one launch per apply; ``BatchedBlockDiagOperator`` over
+   versions and bitwise against a second run, the float32 applies against
+   the host block-diagonal CSR matrix, adjointness, one launch per apply;
+   ``BatchedBlockDiagOperator`` over
    frame 0's ``BucketedBandedProjector`` for the 33 frames (one launch per
    apply, weight frame stride 0) against its plain version; then the
    dynamic demo's sequence (``demos/demo_dynamic_ct.py``:75-116): static
@@ -84,8 +87,9 @@ run by raising:
    source line (from ``torch.cuda.set_sync_debug_mode``); the GCV GKS
    with the Brent chunk as taken and with 8, in turns; the float64-data
    isoTV MMGKS and ``cgls_normal`` (K1, the bucketed float32 pack) killed
-   after one chunk and resumed from their files, held to a fixed limit
-   above the card's run-to-run spread; after 7's profiles, each solver's
+   after one chunk and resumed from their files, each held bit for bit to
+   an uninterrupted run, and two uninterrupted runs to each other; after
+   7's profiles, each solver's
    device busy time per iteration and idle share beside the host-driven
    solver's of 6/7;
 9. deblurring (no K1-K6 on this path: the blurs are cuDNN ``conv2d`` and
@@ -112,12 +116,13 @@ run by raising:
    ``StreamedDynamicBandedOperator`` (forced: the pack fits the card):
    K2, K3 and K1 launched once a frame per apply, ``matvec`` bitwise equal
    to the frames' resident ``matvec``s with and without the compute
-   stream slowed before each frame, ``rmatvec``/``normal_matvec`` within
-   1e-6 of the resident operator of 7 (float32 also against the host CSR
-   matrix), the peak memory of an apply within the two slots, the output
-   and a slack; walls (CUDA events) of the streamed, resident and
-   frame-alone applies and of the upload alone, the link's GB/s, the
-   upload's hidden share and the host's enqueue of an apply;
+   stream slowed before each frame, ``rmatvec`` bitwise and
+   ``normal_matvec`` within 1e-6 of the resident operator of 7 (float32
+   also against the host CSR matrix), the peak memory of an apply within
+   the two slots, the output and a slack; walls (CUDA events) of the
+   streamed, resident and frame-alone applies and of the upload alone,
+   the link's GB/s, the upload's hidden share and the host's enqueue of
+   an apply;
    ``cgls_normal_streamed`` (20 iterations), its final relError held to
    1e-3 of the JAX package's, its nnz/s, and the device's idle share from
    a ``telemetry.profile`` trace;
@@ -130,9 +135,9 @@ run by raising:
    process: tomo256x60's bucketed packs (float32, bfloat16, int8) and
    flat pack, the dynamic bucketed and flat float32 packs of 7, the ELL
    and BSR-as-CSR operators on tomo256x60's matrix and on the dynamic
-   frames; each banded ``matvec`` bitwise the unsharded operator's,
-   ``rmatvec``/``normal_matvec`` within 1e-5, ELL/BSR within 1e-5 of the
-   host product, one launch and one all_reduce per apply; the applies'
+   frames; each banded ``matvec``, ``rmatvec`` and ``normal_matvec``
+   bitwise the unsharded operator's, ELL/BSR within 1e-5 of the host
+   product, one launch and one all_reduce per apply; the applies'
    times beside the unsharded ones (CUDA events, device time, host
    enqueue), the NCCL all_reduce alone; ``cgls_normal`` on the sharded
    float32 packs held as 3 and 10 hold it. [11b] two ranks on the one
@@ -154,21 +159,34 @@ run by raising:
    reference's size on a bundle written from a seed (``GEL``: the real
    geometry, 17 frames, 18 of 360 angles kept, 256x256):
    ``BatchedBlockDiagOperator`` over the bucketed float32 pack of the one
-   shared geometry, K1-K3 over all frames against their plain versions and
-   the host CSR product, adjointness, one launch per apply; CGLS (30),
-   ``cgls_normal`` (30) and Hybrid LSQR with GCV (20), each final
-   relError held to 1e-3 of the JAX package's, launches against the loops'
-   counts, wall and device busy time per iteration, idle share; K1-K3's
-   device ms per apply beside their bound, plain versions and the
-   block-diagonal CSR product; [12c] ``demos.demo_l_curve`` at its
-   defaults (its six solves held to 1e-3 of JAX's float32 run, lambda
-   printed beside JAX's, K2/K3 launches against the loops' counts, the
-   six solves' wall and device busy time); [12d]
+   shared geometry, K1-K3 over all frames against their plain versions
+   (and a second run, bitwise) and the host CSR product, adjointness, one
+   launch per apply; CGLS (30), ``cgls_normal`` (30) and Hybrid LSQR
+   with GCV (20), each final relError held to 1e-3 of the JAX package's,
+   launches against the loops' counts, wall and device busy time per
+   iteration, idle share; K1-K3's device ms per apply beside their bound,
+   plain versions and the block-diagonal CSR product; [12c]
+   ``demos.demo_l_curve`` at its defaults (its six solves held to 1e-3 of
+   JAX's float32 run, lambda printed beside JAX's, K2/K3 launches against
+   the loops' counts, the six solves' wall and device busy time); [12d]
    ``demos.demo_small_scale_cgls`` (``its`` equal to JAX's, relError to
    1e-3); [12e] ``BsrOperator`` with float32, bfloat16 and int8 blocks on
    tomo256x60's matrix against the host product of its stored values,
    device ms beside the ``CsrOperator``'s; [12f]
    ``bench.iters_to_tol.compare`` on the card beside JAX's rows; [12]'s
+   seconds.
+13. the port's twins of the six runnable demos (``trips_tpu_torch.demos``)
+   at full width through their ``main``, with the C++ matrix builder as a
+   user builds: ``demo_tomography --large`` (K2, K3),
+   ``demo_dynamic_ct --nx 128 --nt 33`` (its 12 views; K2, K3),
+   ``demo_1d_deblurring`` and ``demo_2d_deblurring --large`` (no banded
+   kernel), ``demo_fused_tpu --config deblur1d`` and ``--config tomo --nx
+   256 --views 60`` (the bfloat16 pack; K1-K3), ``demo_fused_dynamic
+   --nx 128 --nt 33 --views 10`` (K2, K3; its resume bit for bit): each
+   relError held to 1e-3 of the JAX demo's on the same arguments
+   (float64 where [8] and [9] hold the same solve so; the fused dynamic
+   demo's float32 GCV solves printed, their twins on float64 data held),
+   K1-K3 launches against the loops' counts, each twin's wall; [13]'s
    seconds.
 
 The line before the last holds ``{"kernels": [...]}``; the last line is
@@ -176,6 +194,7 @@ The line before the last holds ``{"kernels": [...]}``; the last line is
 """
 import contextlib
 import copy
+import ctypes
 import importlib.util
 import json
 import os
@@ -465,16 +484,102 @@ def library_csr(M, dev):
 
 
 def parent_loops():
-    """{"cgls": fn, "cgls_normal": fn} of PARENT's ``krylov/cgls.py`` (it
-    imports only torch), or None without PARENT."""
-    path = PARENT / "trips_tpu_torch" / "krylov" / "cgls.py"
+    """{"cgls": fn, "cgls_normal": fn} of PARENT's ``krylov/cgls.py``
+    (PARENT's package imported as ``parent_trips_tpu_torch``: it imports
+    only torch), or None without PARENT."""
+    pkg = PARENT / "trips_tpu_torch"
+    if not (pkg / "krylov" / "cgls.py").exists():
+        return None
+    name = "parent_trips_tpu_torch"
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            name, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[name] = mod  # its submodules look their package up
+        spec.loader.exec_module(mod)
+    mod = importlib.import_module(f"{name}.krylov.cgls")
+    return {"cgls": mod.cgls, "cgls_normal": mod.cgls_normal}
+
+
+def parent_banded():
+    """PARENT's K1-K3 library (its own ``_build.py`` and ``csrc/``, built
+    into its checkout), or None without PARENT: -> a function
+    ``run(name, inp, inp_t, shape, kind, prepared, n_groups, p, rows)``
+    that makes
+    PARENT's wrapper's output (K1, K3: zeroed float32 images its atomics
+    add into) and launches PARENT's kernel over the arguments of
+    ``banded_kernels.prepare`` (the same launch plans and ctypes arrays;
+    the entry point without the fixed-point arguments)."""
+    import torch
+
+    from trips_tpu_torch.sparse import banded_kernels as bk
+
+    path = PARENT / "trips_tpu_torch" / "_build.py"
     if not path.exists():
         return None
-    spec = importlib.util.spec_from_file_location("parent_cgls", path)
+    spec = importlib.util.spec_from_file_location("parent_build", path)
     mod = importlib.util.module_from_spec(spec)
-    sys.modules[spec.name] = mod  # its dataclasses look their module up
     spec.loader.exec_module(mod)
-    return {"cgls": mod.cgls, "cgls_normal": mod.cgls_normal}
+    lib = mod.load()
+    check(len(mod.ENTRY_POINTS["trips_banded"]) == 27,
+          "PARENT's trips_banded is not the atomics entry point")
+
+    def run(name, inp, inp_t, shape, kind, prepared, n_groups, p=0, rows=0):
+        n, p_pad, nf_pack, launches = prepared[:4]
+        fill = torch.empty if name == "banded_fwd" else torch.zeros
+        out = fill(shape, dtype=torch.float32, device=inp.device)
+        nf = shape[0] if len(shape) == 3 else 1
+        stream = torch.cuda.current_stream(inp.device).cuda_stream
+        for nb, arrs, pl in launches:
+            err = lib.trips_banded(
+                bk._OP[name], bk._KIND[kind], nb,
+                *(ctypes.addressof(a) for a in arrs), inp.data_ptr(),
+                inp_t.data_ptr(), out.data_ptr(), p, rows, n, p_pad,
+                n_groups, pl["det"], pl["parts"],
+                pl["lines"], nf, stream)
+            check(err == 0, f"PARENT's {name} launch failed: {err}")
+        return out
+
+    return run
+
+
+def parent_k13(parent_k, adj_args, ata_args, timer):
+    """K3 and K1 of PARENT (float atomics) beside this tree's (fixed
+    point) on the same wrapper arguments (``banded_adj_buckets``'s and
+    ``banded_ata_buckets``'s), each wrapper's device ms in turns (this,
+    PARENT, PARENT, this; ``timer(fn)`` -> ms): -> {kernel: {"this": ms,
+    "parent": ms, "rel": PARENT's output against this one's, "parent
+    bitwise": whether two PARENT runs agree to the bit}}."""
+    import torch
+
+    from trips_tpu_torch.sparse import banded_kernels as bk
+
+    Y, bks, aidx, G = adj_args
+    X, XT = ata_args[:2]
+    n, kind = bks[0][0].shape[-2], bks[0][0].dtype
+    prep = {"banded_adj": bk.prepare("banded_adj", Y, bks, aidx, G),
+            "banded_ata": bk.prepare("banded_ata", X, bks, None, G)}
+    runs = {
+        "banded_adj": (lambda: bk.banded_adj_buckets(*adj_args),
+                       lambda: parent_k("banded_adj", Y, Y,
+                                        Y.shape[:-2] + (n, n), kind,
+                                        prep["banded_adj"], G, Y.shape[-1],
+                                        Y.shape[-2])),
+        "banded_ata": (lambda: bk.banded_ata_buckets(*ata_args),
+                       lambda: parent_k("banded_ata", X, XT, X.shape, kind,
+                                        prep["banded_ata"], G))}
+    out = {}
+    for name, (this, par) in runs.items():
+        got, p1, p2 = this(), par(), par()
+        t = {"this": [], "parent": []}
+        for label in ("this", "parent", "parent", "this"):
+            t[label].append(timer(this if label == "this" else par))
+        e = rel(p1, got)
+        check(e <= KERNEL_RTOL, f"PARENT's {name} vs this one's: {e!r}")
+        out[name] = {"this": float(np.mean(t["this"])),
+                     "parent": float(np.mean(t["parent"])), "rel": e,
+                     "parent bitwise": torch.equal(p1, p2)}
+    return out
 
 
 def demo_solves(OP, bv, L, delta):
@@ -596,6 +701,8 @@ def dynamic_path(dev, card, gen):
             ref = getattr(bk, name + "_buckets_ref")(*a)
             torch.cuda.synchronize()
             check(got.shape == ref.shape, f"{name} frames {kind} shape")
+            check(torch.equal(got, getattr(bk, name + "_buckets")(*a)),
+                  f"{name} frames {kind} differs from run to run")
             errs[name] = rel(got, ref)
             max_abs[name] = max(max_abs[name],
                                 float((got - ref).abs().max()))
@@ -603,7 +710,8 @@ def dynamic_path(dev, card, gen):
                   f"{name} frames {kind} rel err {errs[name]!r}")
         print(f"[7] {kind}, one launch over {nt} frames and "
               f"{len(op._bks)} stacks vs plain, rel err: "
-              + ", ".join(f"{k} {v!r}" for k, v in errs.items()))
+              + ", ".join(f"{k} {v!r}" for k, v in errs.items())
+              + "; each bitwise the same in a second run")
     f32 = ops["flat float32"]
     A64 = A.astype(np.float32).astype(np.float64)
     rng = np.random.default_rng(2)
@@ -773,7 +881,8 @@ def dynamic_times(dyn, dev, card, gen):
 
     ops, nt = dyn["ops"], dyn["nt"]
     names = tuple(REPLACES)
-    ms, bounds, plain_ms = {}, {}, {}
+    ms, bounds, plain_ms, parent_ms = {}, {}, {}, {}
+    parent_k = parent_banded()
     for kind, op in ops.items():
         X = torch.randn(nt, op.n_pad, op.n_pad, device=dev, generator=gen)
         Y = torch.randn(nt, op.views, op.det_count, device=dev,
@@ -781,6 +890,13 @@ def dynamic_times(dyn, dev, card, gen):
         args = frame_args(op, X, Y)
         ms[kind] = {k: device_ms((lambda f, a: lambda: f(*a))(
             getattr(bk, k + "_buckets"), args[k]), 10) for k in names}
+        if parent_k is not None:
+            parent_ms[kind] = parent_k13(parent_k, args["banded_adj"],
+                                         args["banded_ata"],
+                                         lambda f: device_ms(f, 10))
+            print(f"[7] {kind} K3 and K1 over {nt} frames, this tree "
+                  f"(fixed point) and PARENT (float atomics) in turns, "
+                  f"device ms: {parent_ms[kind]}; card {card}")
         if kind == "flat float32":
             plain_ms = {k: device_ms((lambda f, a: lambda: f(*a))(
                 getattr(bk, k + "_buckets_ref"), args[k]), 3,
@@ -840,7 +956,10 @@ def dynamic_times(dyn, dev, card, gen):
              "ms_by_storage": {c: v[k] for c, v in ms.items()},
              "bound_ms_by_storage": {c: v[k][0] for c, v in bounds.items()},
              "library": f"block-diagonal float32 CSR "
-                        f"(torch.sparse_csr_tensor, {idx} indices)"}
+                        f"(torch.sparse_csr_tensor, {idx} indices)",
+             **({"parent_ms_by_storage": {c: v[k] for c, v in
+                                          parent_ms.items()}}
+                if k != "banded_fwd" and parent_ms else {})}
             for k in names]
 
 
@@ -899,13 +1018,11 @@ FUSED_GATE = 1e-3
 FUSED_ITERS, FUSED_DYN_ITERS, LSQR_STEPS = 30, 20, 50
 # the kill/resume runs: chunks of 10 iterations, killed after the first
 FUSED_CHUNK = 10
-# A resumed run's distance from an uninterrupted one, ||dx|| / ||x|| and
-# for the MMGKS its lambda history's. The card's run-to-run spread (K3's
-# and K1's atomics) measured 2.9e-6 and 6.9e-6 (MMGKS) and 2.7-2.8e-6
-# (cgls_normal) in x, 6.0e-5 and 1.4e-4 in the lambdas (GCV's search moves
-# with the applies' rounding); a run one iteration short is 2.8e-3 and
-# 1.2e-3 off in x; a dropped lambda history would be 1 off (PERF.md, PR 9).
-RESUME_LIMIT = {"x": 1e-4, "lambdas": 1e-3}
+# A resumed run repeats the uninterrupted one's operations on the same
+# bytes, and K1 and K3 add in fixed point, so both kill/resume cases are
+# held bit for bit (x, and the MMGKS's lambda history), as the JAX demo
+# holds its own (demos/demo_fused_dynamic.py:84-87), and so are two
+# uninterrupted runs.
 SYNC_ITER = 10  # the iteration whose host syncs are counted
 
 
@@ -1014,7 +1131,7 @@ def fused_path(dev, card, OP, bv, L, delta, x_true, dyn):
     against the count its loop implies, its search loops' lengths and host
     reads, its wall per iteration (before any profiler session) and the
     host syncs of one iteration by source line; the kill/resume of the
-    dynamic isoTV MMGKS and of ``cgls_normal`` against ``RESUME_LIMIT``.
+    dynamic isoTV MMGKS and of ``cgls_normal``, bit for bit.
     -> what ``fused_times`` profiles."""
     import tempfile
 
@@ -1131,7 +1248,7 @@ def fused_path(dev, card, OP, bv, L, delta, x_true, dyn):
           f"chunk in turns: {chunk_walls!r}; host syncs with a chunk of 8: "
           f"{sum(sites8.values())} ({dict(sites8)}); card {card}")
 
-    # kill/resume against two uninterrupted runs, held to RESUME_LIMIT: the
+    # kill/resume against two uninterrupted runs, all bit for bit: the
     # dynamic isoTV MMGKS with GCV on float64 data (K2, K3 over frames) and
     # cgls_normal on the bucketed float32 pack (K1)
     op, dims, bd = dyn["ops"]["flat float32"], dyn["dims"], dyn["bv"]
@@ -1165,29 +1282,30 @@ def fused_path(dev, card, OP, bv, L, delta, x_true, dyn):
             lambda n=DYN_CGN_ITERS, **k: C.cgls_normal_checkpointed(
                 cop, bd, x0, n, chunk=FUSED_CHUNK, device=dev, **k)[:1],
             "K1")}
-    for name, (fn, atomics) in cases.items():
+    for name, (fn, kernels) in cases.items():
         bk.reset_launch_counts()
         full = [fn() for _ in range(2)]
         resumed = killed_and_resumed(fn, os.path.join(tmp, "state.npz"))
         got = dict(bk.launch_counts)
         launches[name] = got
-        # what the limit is for: the same solve one iteration short
+        # the scale of a fault: the same solve one iteration short
         short = fn(n=(FUSED_DYN_ITERS if name.startswith("fused")
                       else DYN_CGN_ITERS) - 1)[0]
         spread = [rel(a, b) for a, b in zip(full[1], full[0])]
         gap = [rel(a, b) for a, b in zip(resumed, full[0])]
         errs = [relerr(r[0], truth["dynamic"]) for r in full + [resumed]]
-        limits = [RESUME_LIMIT[k] for k in ("x", "lambdas")[:len(gap)]]
-        print(f"[8] {name}, chunks of {FUSED_CHUNK}, killed after the first "
-              f"and resumed from its file: x (and lambdas) {gap!r} from an "
-              f"uninterrupted run (limits {limits}), two uninterrupted runs "
-              f"{spread!r} apart ({atomics}'s atomics); one iteration short "
-              f"{rel(short, full[0][0])!r}; relErrors {errs!r}; launches of "
-              f"the four runs {got}; card {card}")
+        same = [all(torch.equal(a, b) for a, b in zip(r, full[0]))
+                for r in (full[1], resumed)]
+        print(f"[8] {name} ({kernels}), chunks of {FUSED_CHUNK}, killed "
+              f"after the first and resumed from its file: x (and lambdas) "
+              f"{gap!r} from an uninterrupted run, bitwise {same[1]}; two "
+              f"uninterrupted runs {spread!r} apart, bitwise {same[0]}; one "
+              f"iteration short {rel(short, full[0][0])!r}; relErrors "
+              f"{errs!r}; launches of the four runs {got}; card {card}")
         check(all(r.shape == f.shape for r, f in zip(resumed, full[0])),
               f"{name} resumed shapes")
-        check(all(g <= lim for g, lim in zip(gap, limits)),
-              f"{name} kill/resume {gap!r} vs the limits {limits}")
+        check(same[0], f"{name}: two uninterrupted runs differ {spread!r}")
+        check(same[1], f"{name}: kill/resume differs {gap!r}")
     cgn = launches["cgls_normal_checkpointed bucketed float32"]
     # per run one K3 (A^T b) and one K1 at set-up, one K1 per iteration;
     # the killed run sets up and runs one chunk, the resumed one the rest
@@ -1659,9 +1777,12 @@ JAX_BATCHED_RELERR = {
         0.23223600782753032, 0.2338221072175272, 0.23604130953144106,
         0.240316337672825, 0.23814838408082425, 0.23972631053619153,
         0.23761370242165328, 0.23581675276029704, 0.23471016379859633]}
-# Gates: the streamed rmatvec / normal_matvec against the resident
-# operator of 7 (the same float32 sums per frame, K1's and K3's atomics
-# in another order); the CGLS and batched final relErrors against JAX's
+# Gates: the streamed rmatvec bitwise the resident operator's of 7 (K3
+# adds the same terms at the same fixed-point scale: a frame's bound is its
+# matrix's whatever the packing, and max|y| is the frame's), the streamed
+# normal_matvec within STREAM_RTOL of it (K1's stage 1 sums each row in
+# its own packing's order: the frame's pack has other buckets than the
+# dynamic one); the CGLS and batched final relErrors against JAX's
 # as in 7; the memory an apply holds (bytes requested, since operator
 # construction): the two slots, the output and STREAM_SLACK_IMAGES float32
 # images of n_pad^2 (a frame's images and sinograms and the resident angle
@@ -1776,13 +1897,16 @@ def streamed_path(dev, card, dyn):
         t4 = time.perf_counter()
         for name, ids in (("banded_fwd", tw0._aidx),
                           ("banded_adj", tw0._aidx), ("banded_ata", None)):
-            bk.prepare(name, sop._slots[0], tw0._bks, ids, op0.n_groups)
+            bk.prepare(name, sop._slots[0], tw0._bks, ids, op0.n_groups,
+                       None if name == "banded_fwd" else bk.pack_bound(
+                           name, op0._bks, op0.n_groups))
         check_us = (time.perf_counter() - t4) * 1e6
         print(f"[10] {kind}: {nt} host frames packed in {t1 - t0:.2f} s; "
-              f"streamed operator (pinned slabs, slots, twins) in "
-              f"{t3 - t2:.2f} s; slabs {min(slabs)}..{max(slabs)} bytes, "
-              f"{sum(slabs)} per apply; one frame's checks and launch "
-              f"arguments {check_us!r} us on the host")
+              f"streamed operator (pinned slabs, slots, twins, the frames' "
+              f"fixed-point bounds) in {t3 - t2:.2f} s; slabs "
+              f"{min(slabs)}..{max(slabs)} bytes, {sum(slabs)} per apply; "
+              f"one frame's checks, launch arguments and bounds "
+              f"{check_us!r} us on the host")
         errs = {}
         for fn, (v, _) in parts.items():
             bk.reset_launch_counts()
@@ -1798,6 +1922,9 @@ def streamed_path(dev, card, dyn):
             if fn == "matvec":
                 check(torch.equal(got, Ax_frames),
                       f"streamed {kind} matvec differs from the frames'")
+            elif fn == "rmatvec":
+                check(torch.equal(got, res.rmatvec(v)),
+                      f"streamed {kind} rmatvec differs from the resident's")
             else:
                 errs[fn] = rel(got, getattr(res, fn)(v))
                 check(errs[fn] <= STREAM_RTOL,
@@ -1811,7 +1938,8 @@ def streamed_path(dev, card, dyn):
                 errs[fn + " vs CSR"] = e
                 check(e <= KERNEL_RTOL, f"streamed {fn} vs CSR {e!r}")
         print(f"[10] {kind}: launches per apply K2/K3/K1 {nt} each; matvec "
-              f"bitwise the frames' resident matvecs; rel err {errs}")
+              f"bitwise the frames' resident matvecs, rmatvec the resident "
+              f"dynamic operator's; rel err {errs}")
         del got
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -1993,8 +2121,11 @@ def batched_path(dev, card, dyn):
 # rank, one all_reduce per apply). Gates: the banded matvec bitwise the
 # unsharded operator's (K2 is bitwise repeatable, computes an angle's row
 # alike in any launch of the same plan, and the rows are copied into
-# place; a sum with the other ranks' zeros is exact); rmatvec and
-# normal_matvec within SHARD_RTOL (K1 and K3 add with atomics), the ELL
+# place; a sum with the other ranks' zeros is exact); at world 1 the banded
+# rmatvec and normal_matvec bitwise too (the one rank's slab is the whole
+# pack: K3 adds the same terms at the same fixed-point scale, K1 sums each
+# row alike, and a one-rank sum is the identity); at world 2 within
+# SHARD_RTOL (each rank rounds its partial image, then the sum), the ELL
 # and BSR operators within SHARD_RTOL of the host scipy product; K1, K2 or
 # K3 once per apply and rank, one all_reduce per apply; cgls_normal as 3
 # and 10 hold it (FINAL_ATOL of JAX_CGLS_RELERR, STREAM_GATE of
@@ -2036,19 +2167,19 @@ def counted(fn, v):
             sharding.collective_counts["all_reduce"] - before[1])
 
 
-def sharded_gates(sop, ref, x, y):
+def sharded_gates(sop, ref, x, y, bitwise=("matvec",)):
     """Each apply of ``sop`` against ``ref`` (a callable name -> the
-    unsharded output): matvec bitwise, the others within SHARD_RTOL, one
-    launch and one all_reduce each. -> ({apply: rel err}, {apply:
-    launches of its kernel})."""
+    unsharded output): those named in ``bitwise`` bitwise, the others
+    within SHARD_RTOL, one launch and one all_reduce each. -> ({apply: rel
+    err}, {apply: launches of its kernel})."""
     errs, launches = {}, {}
     for name, v in (("matvec", x), ("rmatvec", y), ("normal_matvec", x)):
         out, got, coll = counted(getattr(sop, name), v)
         r = ref(name)
         errs[name] = rel(out, r)
         launches[name] = got[KERNEL_OF[name]]
-        if name == "matvec":
-            check(bool((out == r).all()), f"sharded matvec not bitwise the "
+        if name in bitwise:
+            check(bool((out == r).all()), f"sharded {name} not bitwise the "
                   f"unsharded one's (rel {errs[name]!r})")
         check(errs[name] <= SHARD_RTOL, f"sharded {name} rel {errs[name]!r}")
         check(got == ONE_LAUNCH[name] and coll == 1,
@@ -2153,7 +2284,8 @@ def sharded_world1(dev, card, packs, A, dyn, tomo):
                              dtype=torch.float32, device=dev)
             errs, launches[label] = sharded_gates(
                 sop, lambda name: getattr(op, name)(x if name != "rmatvec"
-                                                    else y), x, y)
+                                                    else y), x, y,
+                bitwise=tuple(KERNEL_OF))
             # CUDA events (the device's interval, host gaps included),
             # device time (kernels alone) and the host's enqueue
             times = {name: [f(lambda: getattr(o, name)(v), SHARD_REPS)
@@ -2161,9 +2293,8 @@ def sharded_world1(dev, card, packs, A, dyn, tomo):
                             for o in (sop, op)]
                      for name, v in (("matvec", x), ("rmatvec", y),
                                      ("normal_matvec", x))}
-            print(f"[11a] {label}: matvec bitwise the unsharded one's, "
-                  f"rmatvec {errs['rmatvec']!r}, normal_matvec "
-                  f"{errs['normal_matvec']!r} (gate {SHARD_RTOL}); one "
+            print(f"[11a] {label}: matvec, rmatvec and normal_matvec "
+                  f"bitwise the unsharded one's; one "
                   f"launch and one all_reduce per apply; ms per apply, "
                   f"sharded / unsharded, by CUDA events, device time, host "
                   f"enqueue: " + "; ".join(
@@ -2811,11 +2942,13 @@ def gel_path(dev, card, gen):
         ref = getattr(bk, name + "_buckets_ref")(*a)
         torch.cuda.synchronize()
         check(got.shape == ref.shape, f"gel {name} shape")
+        check(torch.equal(got, getattr(bk, name + "_buckets")(*a)),
+              f"gel {name} differs from run to run")
         errs[name] = rel(got, ref)
         max_abs[name] = float((got - ref).abs().max())
         check(errs[name] <= KERNEL_RTOL, f"gel {name} rel err {errs[name]!r}")
     print(f"[12b] K1-K3 over {nt} frames (weight stride 0) vs plain, rel "
-          f"err: {errs}")
+          f"err: {errs}; each bitwise the same in a second run")
     A64 = A.astype(np.float32).astype(np.float64)
     rng = np.random.default_rng(3)
     x = torch.tensor(rng.standard_normal(A.shape[1]), dtype=torch.float32,
@@ -2854,6 +2987,14 @@ def gel_path(dev, card, gen):
         for k in names for sfx in ("", "_ref")}
     ms = {k: timed[k][0] for k in names}
     plain = {k: timed[k + "_ref"][0] for k in names}
+    parent_k = parent_banded()
+    parent_ms = parent_k and parent_k13(parent_k, args["banded_adj"],
+                                        args["banded_ata"],
+                                        lambda f: checked_ms(f, 10)[0])
+    if parent_ms:
+        print(f"[12b] K3 and K1 over {nt} frames, this tree (fixed point) "
+              f"and PARENT (float atomics) in turns, device ms: "
+              f"{parent_ms}; card {card}")
     # least bytes: the pack (W, S, Pm) and angle ids once, the images and
     # sinograms in and out once; 2 flops per nonzero weight, frame and pass
     pack = sum(nbytes(*k[:4]) for k in op._bks)
@@ -2954,7 +3095,9 @@ def gel_path(dev, card, gen):
              "path": f"gelPhantom, {nt} frames of {nx}x{nx}, {na} angles, "
                      f"BatchedBlockDiagOperator over one float32 pack",
              "library": f"block-diagonal float32 CSR "
-                        f"(torch.sparse_csr_tensor, {idx} indices)"}
+                        f"(torch.sparse_csr_tensor, {idx} indices)",
+             **({"parent_ms": parent_ms[k]["parent"]}
+                if parent_ms and k in parent_ms else {})}
             for k in names]
 
 
@@ -3102,6 +3245,174 @@ def phase12(dev, card, gen, A, dyn):
     return entries
 
 
+# Phase 13: the port's twins of the six runnable demos at full width,
+# each through its ``main`` with the arguments of ``TWIN_ARGS`` (those of
+# demo_reference.TWINS) and the default C++ matrix builder, as a user
+# builds. JAX_TWINS: the relErrors of the JAX demos on the same
+# arguments, in the order their ``relerr`` returned them (``python3
+# demo_reference.py twins``: JAX 0.9.0, x64 off, trips_tpu's C++
+# builder), each held to TWIN_GATE; where the port's float32 formula
+# departs from JAX's, to JAX's float64 run, as [8] and [9] hold the same
+# solves (JAX_TWINS_F64; JAX's float32 value printed beside). The fused
+# dynamic demo's float32 GCV solves are printed, not gated, as [8] prints
+# them (FUSED_UNGATED: where their search stops follows the rounding);
+# their twins on float64 data are held to JAX's float64-data run
+# (``python3 demo_reference.py twins64``), and the demo's own resume to
+# its uninterrupted run bit for bit (its ``assert``).
+TWIN_ARGS = {
+    "demo_tomography": ["--large"],
+    "demo_dynamic_ct": ["--nx", "128", "--nt", "33"],
+    "demo_1d_deblurring": [],
+    "demo_2d_deblurring": ["--large"],
+    "demo_fused_tpu deblur1d": ["--config", "deblur1d"],
+    "demo_fused_tpu tomo": ["--config", "tomo", "--nx", "256", "--views",
+                            "60"],
+    "demo_fused_dynamic": ["--nx", "128", "--nt", "33", "--views", "10"],
+}
+JAX_TWINS = {
+    "demo_tomography": [0.09874777204896255, 0.1089005897518851,
+                        0.09466278723232295],
+    "demo_dynamic_ct": [0.19911505380756225, 0.2056388046428135,
+                        0.19599362557544941, 0.1954971233155815,
+                        0.2138619330883729],
+    "demo_1d_deblurring": [0.02009361299742136, 0.02158552110260634,
+                           0.026406024557281627, 0.0280225852528115,
+                           0.028009884393942166, 0.032951894158374],
+    "demo_2d_deblurring": [0.23538614945619546, 0.17869259320625058,
+                           0.18204715128369964, 0.29352282708106026,
+                           0.10051751146262866, 0.2447749805402716],
+    "demo_fused_tpu deblur1d": [0.02438090327812814, 0.033391713771796006,
+                                0.02273225973608446, 0.06398963097327078,
+                                0.027720378021863532, 0.0279952084243336,
+                                0.028460495108796915],
+    "demo_fused_tpu tomo": [0.12610532343387604, 0.12584705650806427,
+                            0.13773222267627716, 0.12394478172063828,
+                            0.1386227160692215, 0.1385783702135086,
+                            0.1377069354057312],
+    "demo_fused_dynamic": [0.2106951936389655, 0.2135198251865873,
+                           0.21064778173235624],
+}
+# (twin, index of the solve) -> JAX float64: fused GKS with DP on the 1D
+# problem is [9]'s "fused GKS dp" (the same solve); on the tomo
+# configuration fused GKS with GCV and DP and fused MMGKS with GCV, as [8]
+# holds fused GKS and MMGKS (``demo_reference.py twins64``: float64 data,
+# the bfloat16 pack; the port's float32 GCV run on the CPU ends at 0.1264,
+# JAX's float32 at 0.1261, its float64 at 0.1264)
+JAX_TWINS_F64 = {("demo_fused_tpu deblur1d", 1):
+                 JAX_DEBLUR_F64["fused GKS dp"][0],
+                 ("demo_fused_tpu tomo", 0): 0.12639068568242373,
+                 ("demo_fused_tpu tomo", 1): 0.12584688455245555,
+                 ("demo_fused_tpu tomo", 3): 0.12400420004040028}
+TWIN_UNGATED = {("demo_fused_dynamic", k) for k in range(3)}
+# the fused dynamic demo's isoTV and GS MMGKS with GCV on float64 data
+# (``demo_reference.py twins64``); the port's float32 isoTV run on the CPU
+# ends at 0.21324, JAX's float32 at 0.21070
+JAX_TWINS_DYN_F64 = {"isoTV": 0.21123196240569192,
+                     "GS": 0.2135538142822808}
+TWIN_GATE = 1e-3
+# K2, K3, K1 launches each twin's loops imply (see phase13)
+TWIN_LAUNCHES = {
+    # GKS (d + 1 + n, d + n), Hybrid LSQR (n, n), MMGKS (d + 1 + 2n,
+    # d + 1 + n); d = 3, n = 30
+    "demo_tomography": (34 + 30 + 64, 33 + 30 + 34, 0),
+    # static frames on ELL; three MMGKS on the frame-varying pack (a K2 per
+    # column of A V: 2d + 2n, d + 1 + n; d = 4, n = 20); Hybrid LSQR (n, n)
+    "demo_dynamic_ct": (3 * 48 + 20, 3 * 25 + 20, 0),
+    "demo_1d_deblurring": (0, 0, 0),
+    "demo_2d_deblurring": (0, 0, 0),
+    "demo_fused_tpu deblur1d": (0, 0, 0),
+    # fused GKS twice per rule (19, 18), fused MMGKS (34, 19), fused Hybrid
+    # LSQR (20, 20), cgls twice (1 + 20 each way), cgls_normal twice (one
+    # K3 and 1 + 20 K1)
+    "demo_fused_tpu tomo": (6 * 19 + 34 + 20 + 2 * 21,
+                            6 * 18 + 19 + 20 + 2 * 21 + 2, 2 * 21),
+    # fused MMGKS twice (d + 3 + 2n, d + 1 + n; d = 3, n = 10); the
+    # checkpointed runs: a whole one, the killed one (set-up and 6
+    # iterations), the resumed one (4 iterations, no set-up)
+    "demo_fused_dynamic": (2 * 26 + 26 + 18 + 8, 2 * 14 + 14 + 10 + 4, 0),
+}
+
+
+def phase13(dev, card):
+    """Phase 13: the six demo twins at full width on the card: each
+    relError against the JAX demo's, K1-K3 launches against the loops'
+    counts, the fused dynamic demo's resume bit for bit, each wall."""
+    import importlib
+
+    import torch
+
+    from trips_tpu_torch.operators import CenteredSpaceTimeDerivative
+    from trips_tpu_torch.problems import generate_synthetic_dynamic
+    from trips_tpu_torch.solvers.fused import fused_mmgks
+    from trips_tpu_torch.sparse import DynamicBandedOperator
+    from trips_tpu_torch.sparse import banded_kernels as bk
+
+    t0 = time.perf_counter()
+    walls, total = {}, {k: 0 for k in bk.launch_counts}
+    for twin, argv in TWIN_ARGS.items():
+        mod = importlib.import_module(
+            f"trips_tpu_torch.demos.{twin.split()[0]}")
+        bk.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = mod.main(argv + ["--device", str(dev)])
+        torch.cuda.synchronize()
+        walls[twin] = time.perf_counter() - t
+        got = dict(bk.launch_counts)
+        for k in total:
+            total[k] += got[k]
+        if twin == "demo_fused_dynamic":
+            out, same = out
+            check(same, "demo_fused_dynamic: the resumed run differs")
+        out = {k: float(v) for k, v in out.items()}
+        errs = list(out.values())
+        ref = JAX_TWINS[twin]
+        check(len(errs) == len(ref), f"{twin}: {len(errs)} solves")
+        lines = []
+        for k, (name, err) in enumerate(out.items()):
+            r32 = ref[k]
+            r = JAX_TWINS_F64.get((twin, k), r32)
+            gated = (twin, k) not in TWIN_UNGATED
+            lines.append(f"{name} {err!r} (JAX float32 {r32!r}"
+                         + (f", float64 {r!r}" if r != r32 else "")
+                         + ("" if gated else "; printed, not gated") + ")")
+            if gated:
+                check(abs(err - r) <= TWIN_GATE,
+                      f"{twin} {name}: relError {err!r} against {r!r}")
+        want = dict(zip(("banded_fwd", "banded_adj", "banded_ata"),
+                        TWIN_LAUNCHES[twin]))
+        print(f"[13] {twin} {' '.join(argv)}: " + "; ".join(lines)
+              + f"; launches {got} (expected {want}); wall "
+              f"{walls[twin]:.2f} s; card {card}")
+        check(got == want, f"{twin} launches {got} vs {want}")
+    # the fused dynamic demo's two GCV solves on float64 data, the gated
+    # twins of its float32 ones
+    (_, b, AA, _, nx, ny, nt, _, x_true, al) = generate_synthetic_dynamic(
+        nx=128, nt=33, views=10, noise_level=0.01, return_angles=True)
+    op = DynamicBandedOperator.from_frames(AA, nx, al, n_groups=8,
+                                           device=dev)
+    Ltv = CenteredSpaceTimeDerivative(nx, ny, nt, device=dev)
+    bd = torch.tensor(b, dtype=torch.float64, device=dev)
+    for mode in ("isoTV", "GS"):
+        x = fused_mmgks(op, bd, Ltv if mode == "isoTV" else None, pnorm=2.0,
+                        qnorm=1.0, projection_dim=3, n_iter=10,
+                        regparam_mode="gcv", weight_mode=mode,
+                        prob_dims=(nx, ny, nt), device=dev)[0]
+        err = float(np.linalg.norm(x.double().cpu().numpy().reshape(-1)
+                                   - x_true) / np.linalg.norm(x_true))
+        ref = JAX_TWINS_DYN_F64[mode]
+        print(f"[13] demo_fused_dynamic's {mode} MMGKS with GCV on float64 "
+              f"data: relError {err!r} (JAX float64 {ref!r}, gate "
+              f"{TWIN_GATE})")
+        check(abs(err - ref) <= TWIN_GATE,
+              f"fused dynamic {mode} float64 data: {err!r} against {ref!r}")
+    took = time.perf_counter() - t0
+    print(f"[13] took {took:.1f} s (twins {sum(walls.values()):.1f} s: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in walls.items())
+          + f"); launches {total}; card {card}")
+    return total
+
+
 def main():
     import torch
 
@@ -3175,6 +3486,8 @@ def main():
                 ref = getattr(bk, name + "_ref")(*a)
                 torch.cuda.synchronize()
                 check(got.shape == ref.shape, f"{name} {kind} shape")
+                check(torch.equal(got, getattr(bk, name)(*a)),
+                      f"{name} {kind} differs from run to run")
                 e = rel(got, ref)
                 worst[name] = max(worst[name], e)
                 max_abs[name] = max(max_abs[name],
@@ -3185,6 +3498,8 @@ def main():
         got = bk.banded_ata_buckets(*args)
         ref = bk.banded_ata_buckets_ref(*args)
         torch.cuda.synchronize()
+        check(torch.equal(got, bk.banded_ata_buckets(*args)),
+              f"banded_ata_buckets {kind} differs from run to run")
         e = rel(got, ref)
         max_abs["banded_ata"] = max(max_abs["banded_ata"],
                                     float((got - ref).abs().max()))
@@ -3204,15 +3519,25 @@ def main():
                                 float((got - ref).abs().max()))
             check(e_all[name] <= KERNEL_RTOL,
                   f"{name}_buckets {kind} rel err {e_all[name]!r}")
-        again = bk.banded_fwd_buckets(*fwd_buckets(op, X))
-        check(torch.equal(again, outs["banded_fwd"]),
-              f"banded_fwd_buckets {kind} differs from run to run")
+        for name, args in (("banded_fwd", fwd_buckets(op, X)),
+                           ("banded_adj", adj_buckets(op, Ys))):
+            again = getattr(bk, name + "_buckets")(*args)
+            check(torch.equal(again, outs[name]),
+                  f"{name}_buckets {kind} differs from run to run")
+        # K3 in fixed point: zeros in, zeros out; a NaN in, NaN out
+        zero = bk.banded_adj_buckets(*adj_buckets(op, torch.zeros_like(Ys)))
+        Yn = Ys.clone()
+        Yn[1, 2] = float("nan")
+        nan = bk.banded_adj_buckets(*adj_buckets(op, Yn))
+        check(not zero.any() and bool(torch.isnan(nan).all()),
+              f"banded_adj_buckets {kind} on zero / NaN input")
         print(f"[2] {kind} kernels vs plain, worst bucket rel err: "
               + ", ".join(f"{k} {v!r}" for k, v in worst.items())
               + f"; over all {len(op.stacks)} buckets in one launch each: "
               f"banded_ata {e!r}, "
               + ", ".join(f"{k} {v!r}" for k, v in e_all.items())
-              + "; banded_fwd bitwise the same in a second run")
+              + "; K1-K3 per bucket and over all buckets bitwise the same "
+              "in a second run; K3 of zeros zero, of a NaN all NaN")
 
     A64 = A.astype(np.float32).astype(np.float64)
     rng = np.random.default_rng(1)
@@ -3326,20 +3651,21 @@ def main():
         print(f"[3] cgls_normal {kind}: k {k}, relError final "
               f"{float((x_n - xt).norm() / xt_norm)!r}, min {min(errs)!r} "
               f"at iteration {int(np.argmin(errs)) + 1}")
-    # K1 adds with atomics: the same float32 solve again, its history
-    # against the first (printed, not gated)
+    # K1 and K3 add in fixed point: the same float32 solve again, its
+    # history and iterate the same bits as the first's
     runs = []
     for _ in range(2):
         s, errs = _cgn_init(ops["float32"], bv, x0), []
         for it in range(1, CGN_ITERS + 1):
             s = _cgn_chunk(ops["float32"], 0.0, s, it)
             errs.append(float((s.x - xt).norm() / xt_norm))
-        runs.append(np.array(errs))
-    spread = np.abs(runs[0] - runs[1])
-    print(f"[3] cgls_normal float32 run twice: max |relError history "
-          f"difference| {float(spread.max())!r} at iteration "
-          f"{int(spread.argmax()) + 1}, final {float(spread[-1])!r} (K1's "
-          f"atomics; against the 1e-3 gates)")
+        runs.append((np.array(errs), s.x))
+    same = (np.array_equal(runs[0][0], runs[1][0])
+            and torch.equal(runs[0][1], runs[1][1]))
+    print(f"[3] cgls_normal float32 run twice: relError histories and "
+          f"final iterates bitwise equal: {same}; max |difference| "
+          f"{float(np.abs(runs[0][0] - runs[1][0]).max())!r}")
+    check(same, "cgls_normal float32 differs from run to run")
     d8 = abs(cgn_min["int8"] - cgn_min["float32"])
     print(f"[3] int8 vs float32 min relError gap {d8!r}")
     check(d8 <= INT8_ATOL, f"int8 min relError gap {d8!r}")
@@ -3548,7 +3874,11 @@ def main():
           f"{BF16_FLOPS:.3g} bf16 and {TF32_FLOPS:.3g} TF32 FLOP/s")
     # 256 MB, written between runs where a cold L2 (50 MB) is wanted
     scrub = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
-    kernel_ms, banded_bound = {}, {}
+    kernel_ms, banded_bound, parent_ms = {}, {}, {}
+    parent_k = parent_banded()
+    if parent_k is None:
+        print(f"[4] parent: no checkout under {PARENT} (K1 and K3 not "
+              f"timed against it)")
     for kind, op in ops.items():
         X = torch.randn(op.n_pad, op.n_pad, device=dev, generator=gen)
         p = op.det_count
@@ -3591,6 +3921,13 @@ def main():
             "banded_fwd": bound(pack + ids + img + sino, 2 * nz, F32_FLOPS),
             "banded_adj": bound(pack + ids + sino + img, 2 * nz, F32_FLOPS)}
         wbytes = sum(nbytes(st[0]) for st in op.stacks)
+        if parent_k is not None:
+            parent_ms[kind] = parent_k13(
+                parent_k, adj_buckets(op, Ys), all_buckets(op, X),
+                lambda f: device_ms(f, 10))
+            print(f"[4] {kind} K3 and K1 over all buckets, this tree (fixed "
+                  f"point) and PARENT (float atomics) in turns, device ms: "
+                  f"{parent_ms[kind]}; card {card}")
         print(f"[4] {kind} one apply (W {wbytes} B, {nz} nonzero weights), "
               f"one launch per kernel:")
         for name in REPLACES:
@@ -3797,7 +4134,11 @@ def main():
                                           for k, v in banded_bound.items()},
                      library="float32 CSR (torch.sparse_csr_tensor, "
                              f"{idx} indices)",
-                     library_bound_ms=library_bound[name][0])
+                     library_bound_ms=library_bound[name][0],
+                     **({"parent_ms_by_storage": {
+                         k: v[name] for k, v in parent_ms.items()}}
+                        if name in ("banded_ata", "banded_adj")
+                        and parent_ms else {}))
                for name in ("banded_ata", "banded_fwd", "banded_adj")]
     def rotate_extra(name):
         """K4/K5: the float32 canvas numbers and the plan."""
@@ -3897,6 +4238,13 @@ def main():
                     [r[a][k] for r in world2[w2]]}
     # ---- 12. the C++ builder, gelPhantom, the demo twins, BSR -----------
     kernels += phase12(dev, card, gen, A, dyn)
+    # ---- 13. the six demo twins, the C++ builder ------------------------
+    with numpy_builder(False):
+        twins = phase13(dev, card)
+    for entry in kernels:
+        k = entry["name"]
+        if k in twins:
+            entry["twin_launches"] = twins[k]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -124,6 +124,25 @@ default C++ matrix builder, as the demo runs), then
 ``l_curve64`` (about 35 s) the same with x64 on. They print each final
 relError and lambda, CGLS's ``its`` and the iteration rows
 (``chip_smoke.py`` [12c], [12d], [12f]).
+
+The ``twins`` mode runs the six JAX demos that ``chip_smoke.py`` [13]
+runs the port's twins of, at [13]'s arguments (``TWINS``), each through
+its own ``main`` with a patched ``sys.argv``, x64 off and ``trips_tpu``'s
+default C++ matrix builder (the twins build as users do): the tomography
+demo with ``--large``, the dynamic demo at ``--nx 128 --nt 33`` (its 12
+views), the 1D deblurring demo at its defaults, the 2D one with
+``--large``, the fused demo with ``--config deblur1d`` and with
+``--config tomo --nx 256 --views 60``, and the fused dynamic demo at
+``--nx 128 --nt 33 --views 10``. It prints each demo's own lines and, at
+full precision, every relError its ``relerr`` returned, in order. About
+40 minutes and a few GB; ``twins <name> ...`` runs only the named ones.
+``twins64`` runs the fused demos' solves of ``twins`` with x64 on and
+float64 data (the packs as the demos make them), for the gates where the
+port's float32 formulas depart from JAX's (about 10 minutes).
+``twins_small`` runs the six JAX demos at the small sizes of
+``tests/test_torch_demos.py`` (``TWINS_SMALL``; about 2 minutes), whose
+relErrors that test holds the twins to where a JAX demo takes longer
+than its budget.
 """
 import contextlib
 import os
@@ -920,6 +939,142 @@ def run_l_curve(x64=False):
           flush=True)
 
 
+# demo -> the arguments of chip_smoke.py [13] (the JAX demo's own flags)
+TWINS = {
+    "demo_tomography": ["--large"],
+    "demo_1d_deblurring": [],
+    "demo_2d_deblurring": ["--large"],
+    "demo_fused_tpu deblur1d": ["--config", "deblur1d"],
+    "demo_fused_tpu tomo": ["--config", "tomo", "--nx", "256", "--views",
+                            "60"],
+    "demo_fused_dynamic": ["--nx", "128", "--nt", "33", "--views", "10"],
+    "demo_dynamic_ct": ["--nx", "128", "--nt", "33"],
+}
+
+# the same demos at the small sizes of tests/test_torch_demos.py
+TWINS_SMALL = {
+    "demo_tomography": ["--n", "16", "--views", "12", "--iters", "8"],
+    "demo_1d_deblurring": ["--n", "120", "--iters", "10"],
+    "demo_2d_deblurring": ["--n", "24", "--iters", "8"],
+    "demo_fused_tpu deblur1d": ["--config", "deblur1d", "--n", "200",
+                                "--iters", "8"],
+    "demo_fused_tpu tomo": ["--config", "tomo", "--nx", "24", "--views",
+                            "32", "--iters", "4"],
+    "demo_fused_dynamic": ["--nx", "16", "--nt", "2", "--views", "9",
+                           "--n_iter", "7"],
+    "demo_dynamic_ct": ["--nx", "16", "--nt", "2", "--iters", "4"],
+}
+
+
+def run_twins(names=(), twins=None):
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    os.environ.pop("TRIPS_TPU_NO_NATIVE", None)
+    sys.path[:0] = [str(ROOT / "demos"), str(ROOT)]
+    import importlib
+
+    import jax
+
+    jax.config.update("jax_enable_x64", False)
+    print("x64", jax.config.jax_enable_x64, jax.__version__, flush=True)
+    for name, argv in (twins or TWINS).items():
+        if names and name not in names:
+            continue
+        demo = importlib.import_module(name.split()[0])
+        rec, orig = [], demo.relerr
+
+        def relerr(x, xt, orig=orig, rec=rec):
+            rec.append(float(orig(x, xt)))
+            return rec[-1]
+
+        demo.relerr = relerr
+        sys.argv = [name.split()[0]] + argv
+        t = time.time()
+        print(f"== {name} {' '.join(argv)}", flush=True)
+        demo.main()
+        demo.relerr = orig
+        print(f"{name} relerr {rec!r} {time.time() - t:.1f} s", flush=True)
+
+
+def run_twins64():
+    """The fused demos' solves of ``twins`` with x64 on and float64 data
+    (the packs stay float32 and bfloat16): ``demos/demo_fused_tpu.py
+    --config tomo --nx 256 --views 60`` (its five fused solves and two
+    CGLS loops) and ``demos/demo_fused_dynamic.py --nx 128 --nt 33
+    --views 10`` (its isoTV and GS MMGKS), as ``fused64`` holds [8]'s."""
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    os.environ.pop("TRIPS_TPU_NO_NATIVE", None)
+    sys.path[:0] = [str(ROOT / "demos"), str(ROOT)]
+    import jax
+
+    jax.config.update("jax_enable_x64", True)
+    import jax.numpy as jnp
+
+    from trips_tpu.krylov import cgls, cgls_normal
+    from trips_tpu.operators import (CenteredSpaceTimeDerivative,
+                                     FirstDerivative2D)
+    from trips_tpu.problems import generate_synthetic_dynamic
+    from trips_tpu.problems.phantoms import tectonic
+    from trips_tpu.problems.projector import fan_beam_matrix
+    from trips_tpu.solvers.fused import (fused_gks, fused_hybrid_lsqr,
+                                         fused_mmgks)
+    from trips_tpu.sparse import (BucketedBandedProjector,
+                                  DynamicBandedOperator)
+
+    print("x64", jax.config.jax_enable_x64, jax.__version__, flush=True)
+
+    def relerr(x, xt):
+        x = np.asarray(x).reshape(-1)
+        return float(np.linalg.norm(x - xt) / np.linalg.norm(xt))
+
+    # demo_fused_tpu.build_tomo(256, 60) with b kept in float64
+    np.random.seed(0)
+    nx, views, iters = 256, 60, 15
+    A = fan_beam_matrix(nx, views=views).astype(np.float32)
+    x_true = tectonic(nx).reshape(-1).astype(np.float32)
+    b_true = A @ x_true
+    e = np.random.randn(b_true.size)
+    sig = 0.01 * np.linalg.norm(b_true) / np.linalg.norm(e)
+    b = b_true + sig * e
+    delta = float(np.linalg.norm(sig * e))
+    op = BucketedBandedProjector.from_scipy_fan(A, nx, views, n_groups=32,
+                                                n_buckets=3,
+                                                dtype=jnp.bfloat16)
+    L = FirstDerivative2D(nx, nx)
+    bj = jnp.asarray(b)
+    rec = []
+    for mode in ("gcv", "dp", "l_curve"):
+        x, lams, _ = fused_gks(op, bj, L, projection_dim=3, n_iter=iters,
+                               regparam_mode=mode, delta=delta)
+        rec.append(relerr(x, x_true))
+        print(f"tomo fused_gks[{mode}]", rec[-1], float(lams[-1]),
+              flush=True)
+    x, lams, _ = fused_mmgks(op, bj, L, pnorm=2.0, qnorm=1.0,
+                             projection_dim=3, n_iter=iters,
+                             regparam_mode="gcv")
+    rec.append(relerr(x, x_true))
+    x, lams = fused_hybrid_lsqr(op, bj, n_iter=20, regparam_mode="gcv")
+    rec.append(relerr(x, x_true))
+    x0 = jnp.zeros(A.shape[1])
+    for fn in (cgls, cgls_normal):
+        rec.append(relerr(fn(op, bj, x0, 20, 0.0)[0], x_true))
+    print("demo_fused_tpu tomo float64 data relerr", repr(rec), flush=True)
+
+    (_, b, AA, _, nx, ny, nt, _, x_true, al) = generate_synthetic_dynamic(
+        nx=128, nt=33, views=10, noise_level=0.01, return_angles=True)
+    op = DynamicBandedOperator.from_frames(AA, nx, al, n_groups=8)
+    Ltv = CenteredSpaceTimeDerivative(nx, ny, nt)
+    rec = []
+    for mode in ("isoTV", "GS"):
+        x, lams, _ = fused_mmgks(op, jnp.asarray(b),
+                                 Ltv if mode == "isoTV" else None,
+                                 pnorm=2.0, qnorm=1.0, projection_dim=3,
+                                 n_iter=10, regparam_mode="gcv",
+                                 weight_mode=mode, prob_dims=(nx, ny, nt))
+        rec.append(relerr(x, x_true))
+        print(f"dynamic {mode}", rec[-1], float(lams[-1]), flush=True)
+    print("demo_fused_dynamic float64 data relerr", repr(rec), flush=True)
+
+
 if __name__ == "__main__":
     modes = {"jax": run_jax, "torch": run_torch, "dynamic": run_dynamic,
              "fused": run_fused, "fused64": lambda: run_fused(x64=True),
@@ -928,10 +1083,14 @@ if __name__ == "__main__":
              "deblur_probe": run_deblur_probe, "streamed": run_streamed,
              "batched": run_batched, "gel": run_gel,
              "l_curve": run_l_curve,
-             "l_curve64": lambda: run_l_curve(x64=True)}
+             "l_curve64": lambda: run_l_curve(x64=True),
+             "twins": run_twins, "twins64": run_twins64,
+             "twins_small": lambda: run_twins(twins=TWINS_SMALL)}
+    if len(sys.argv) > 2 and sys.argv[1] == "twins":
+        sys.exit(run_twins(sys.argv[2:]))
     if len(sys.argv) != 2 or sys.argv[1] not in modes:
         sys.exit(f"usage: {sys.argv[0]} "
                  "jax|torch|dynamic|fused|fused64|fused_torch|deblur|"
                  "deblur64|deblur_probe|streamed|batched|gel|l_curve|"
-                 "l_curve64")
+                 "l_curve64|twins [name ...]|twins64|twins_small")
     modes[sys.argv[1]]()

@@ -5,9 +5,11 @@ Without a card every test here skips. On a card (no JAX needed):
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
-Float32 sums run in another order (and the banded adjoints with atomics),
-so the kernels agree with the plain versions to 1e-5 of the norm (K4 and
-K5 also to the bit from run to run: their sums run in a fixed order). A
+Float32 sums run in another order, so the kernels agree with the plain
+versions to 1e-5 of the norm; K2, K4 and K5 sum in a fixed order and K1
+and K3 back-project in fixed point (integer atomics), so all five give
+the same bits from run to run, K1 and K3 those of their PyTorch
+emulation (``banded_*_buckets_fixed``). A
 bfloat16 output (K4's canvases, K6's U before its second product) may
 round an entry one bf16 step the other way: 1e-3 there. K6's float32 path
 sums 3xTF32 products (each within 2^-22 of the float32 product), also held
@@ -384,6 +386,68 @@ def test_banded_adjointness(cuda, geometries, dtype):
     assert gap <= 1e-5 * float(Ax.double().norm() * y.double().norm())
 
 
+def _dyadic(op):
+    """``op``'s buckets with every stored weight rounded to a multiple of
+    1/16 (int8: scales 1/16), so that with small integer images every
+    float32 sum of K1's stage 1 is exact in any order."""
+    out = []
+    for W, S, P, sc, isc in op._bks:
+        if sc is None:
+            W = (torch.round(W.float() * 16) / 16).to(W.dtype)
+        else:
+            sc = torch.full_like(sc, 1 / 16)
+        out.append((W.contiguous(), S, P, sc, isc))
+    return tuple(out)
+
+
+def _to_cpu(buckets):
+    return [tuple(t.cpu() if torch.is_tensor(t) else t for t in b)
+            for b in buckets]
+
+
+@pytest.mark.parametrize("dtype", KINDS)
+def test_fixed_point_repeats_and_emulation(cuda, geometries, dtype):
+    """K1 and K3 over all buckets of tomo256x60's pack: the same bits in 5
+    calls; K3 those of its emulation on random input, K1 those of its
+    emulation where stage 1 is exact (dyadic weights, integer images);
+    zeros in, zeros out; a NaN or an inf in, NaN out."""
+    A, nx, theta = geometries["tomo256x60"]
+    op = BucketedBandedProjector.from_scipy_fan(
+        A, nx, None, angles=theta, n_groups=32, dtype=dtype, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(7)
+    X = torch.randn(op.n_pad, op.n_pad, device=cuda, generator=g)
+    XT = X.T.contiguous()
+    p = op.det_count
+    Y = torch.randn(op.shape[0] // p, p, device=cuda, generator=g)
+    for fn, args in ((bk.banded_adj_buckets, (Y, op._bks, op._aidx,
+                                              op.n_groups)),
+                     (bk.banded_ata_buckets, (X, XT, op._bks, op.n_groups))):
+        first = fn(*args)
+        assert all(torch.equal(first, fn(*args)) for _ in range(4))
+    cpu = _to_cpu(op._bks)
+    ids = [a.cpu() for a in op._aidx]
+    got = bk.banded_adj_buckets(Y, op._bks, op._aidx, op.n_groups).cpu()
+    assert torch.equal(got, bk.banded_adj_buckets_fixed(Y.cpu(), cpu, ids,
+                                                        op.n_groups))
+    dy = _dyadic(op)
+    Xi = torch.randint(-4, 5, (op.n_pad, op.n_pad), device=cuda,
+                       generator=g).float()
+    got = bk.banded_ata_buckets(Xi, Xi.T.contiguous(), dy, op.n_groups)
+    want = bk.banded_ata_buckets_fixed(Xi.cpu(), Xi.T.contiguous().cpu(),
+                                       _to_cpu(dy), op.n_groups)
+    assert torch.equal(got.cpu(), want)
+    zero = bk.banded_adj_buckets(torch.zeros_like(Y), op._bks, op._aidx,
+                                 op.n_groups)
+    assert torch.equal(zero, torch.zeros_like(zero))
+    for bad in (float("nan"), float("inf")):
+        Yb, Xb = Y.clone(), X.clone()
+        Yb[3, 5], Xb[7, 9] = bad, bad
+        assert torch.isnan(bk.banded_adj_buckets(
+            Yb, op._bks, op._aidx, op.n_groups)).all()
+        assert torch.isnan(bk.banded_ata_buckets(
+            Xb, Xb.T.contiguous(), op._bks, op.n_groups)).all()
+
+
 @pytest.mark.parametrize("name", ["banded_fwd", "banded_adj"])
 def test_refused_plan_raises(cuda, name, monkeypatch):
     """A plan the kernel cannot run (parts beyond a 16-block cluster for
@@ -603,7 +667,42 @@ def test_padded_angles_write_no_row_on_card(cuda, dynamic32):
         W[pad] = 1.0
     assert pads
     assert torch.equal(op.matvec(x), clean[0])
-    assert _rel(op.rmatvec(y), clean[1]) <= 1e-6  # K3's atomics
+    assert torch.equal(op.rmatvec(y), clean[1])
+
+
+@pytest.mark.parametrize("kind,dtype", DYN_CLASSES)
+def test_fixed_point_frames(cuda, dynamic32, kind, dtype):
+    """Over the frames of the dynamic packs, and with a pack split over two
+    launches (``kMaxBuckets`` lowered to 1 through the wrapper's
+    ``prepare``): K1 and K3 the same bits in 5 calls, K3 those of its
+    emulation, over one launch or one per bucket alike."""
+    op = _dyn(dynamic32, kind, dtype, cuda)
+    g = torch.Generator(device=cuda).manual_seed(8)
+    X = torch.randn(op.nt, op.n_pad, op.n_pad, device=cuda, generator=g)
+    XT = X.transpose(1, 2).contiguous()
+    Y = torch.randn(op.nt, op.views, op.det_count, device=cuda, generator=g)
+    for fn, args in ((bk.banded_adj_buckets, (Y, op._bks, op._aidx,
+                                              op.n_groups)),
+                     (bk.banded_ata_buckets, (X, XT, op._bks, op.n_groups))):
+        first = fn(*args)
+        assert all(torch.equal(first, fn(*args)) for _ in range(4))
+    img = bk.banded_adj_buckets(Y, op._bks, op._aidx, op.n_groups)
+    assert torch.equal(img.cpu(), bk.banded_adj_buckets_fixed(
+        Y.cpu(), _to_cpu(op._bks), [a.cpu() for a in op._aidx],
+        op.n_groups))
+    # one launch per bucket: the int64 image carries over between them
+    name = "banded_adj"
+    n, p_pad, nf, launches, bound = bk.prepare(name, Y, op._bks, op._aidx,
+                                               op.n_groups)
+    assert len(launches) == 1 and launches[0][0] >= 2
+    split = [bk.prepare(name, Y, op._bks[k:k + 1], op._aidx[k:k + 1],
+                        op.n_groups, bound)[3][0]
+             for k in range(len(op._bks))]
+    before = bk.launch_counts[name]
+    two = bk.banded_adj_buckets(Y, op._bks, op._aidx, op.n_groups,
+                                prepared=(n, p_pad, nf, split, bound))
+    assert bk.launch_counts[name] == before + len(split)
+    assert torch.equal(two, img)
 
 
 @pytest.mark.parametrize("dtype", KINDS)
@@ -621,16 +720,16 @@ def test_shared_stack_frames(cuda, dtype):
     fw, ad, at = op.matmat(X.T), op.rmatmat(Y.T), op.normal_matmat(X.T)
     assert bk.launch_counts == {"banded_fwd": 1, "banded_adj": 1,
                                 "banded_ata": 1}
-    for f in range(5):
+    for f in range(5):  # the frame's own scale: the same bits alone
         assert torch.equal(fw[:, f], op.matvec(X[f]))
-        assert _rel(ad[:, f], op.rmatvec(Y[f])) <= 1e-6
-        assert _rel(at[:, f], op.normal_matvec(X[f])) <= 1e-6
+        assert torch.equal(ad[:, f], op.rmatvec(Y[f]))
+        assert torch.equal(at[:, f], op.normal_matvec(X[f]))
     blk = BatchedBlockDiagOperator(op, 5)
     bk.reset_launch_counts()
     for fn, v in (("matvec", X), ("rmatvec", Y), ("normal_matvec", X)):
         got = getattr(blk, fn)(v.reshape(-1))
         ref = torch.cat([getattr(op, fn)(r) for r in v])
-        assert _rel(got, ref) <= 1e-6, fn
+        assert torch.equal(got, ref), fn
     assert bk.launch_counts == {"banded_fwd": 6, "banded_adj": 6,
                                 "banded_ata": 6}
 
@@ -786,9 +885,8 @@ def test_lsqr_matches_cpu(cuda, demo64):
 def test_fused_dynamic_checkpoint_on_card(cuda, dynamic32, tmp_path):
     """The dynamic isoTV MMGKS (GCV on float64 data, where its search is
     stable) in chunks on the card, killed after the first chunk and
-    resumed from its file: within 1e-4 of the uninterrupted iterate and
-    1e-3 of its lambda history (K3 adds with atomics: ``chip_smoke.py``'s
-    ``RESUME_LIMIT``), bitwise on the CPU, and within 1e-3 of the CPU's
+    resumed from its file: bitwise the uninterrupted iterate and lambda
+    history on the card and on the CPU, and within 1e-3 of the CPU's
     relError."""
     from trips_tpu_torch.operators import CenteredSpaceTimeDerivative
     from trips_tpu_torch.solvers.checkpointed import fused_mmgks_checkpointed
@@ -816,11 +914,9 @@ def test_fused_dynamic_checkpoint_on_card(cuda, dynamic32, tmp_path):
             fused_mmgks_checkpointed(op, bt, L, callback=kill, **kw)
         xs[dev].append(fused_mmgks_checkpointed(
             op, bt, L, resume_state=str(tmp_path / "s.npz"), **kw)[:2])
-    (x, lams), (xr, lamsr) = xs["cuda"]
-    assert lamsr.shape == lams.shape
-    assert _rel(xr, x) <= 1e-4 and _rel(lamsr, lams) <= 1e-3
-    (x, lams), (xr, lamsr) = xs["cpu"]
-    assert torch.equal(xr, x) and torch.equal(lamsr, lams)
+    for dev in ("cuda", "cpu"):
+        (x, lams), (xr, lamsr) = xs[dev]
+        assert torch.equal(xr, x) and torch.equal(lamsr, lams), dev
     xt = torch.from_numpy(x_true.reshape(-1))
     errs = [_rel(x[0][0].cpu(), xt) for x in xs.values()]
     assert abs(errs[0] - errs[1]) <= 1e-3, errs
@@ -912,8 +1008,10 @@ def test_streamed_matches_resident_on_card(cuda, dynamic32, dtype):
     ``matvec`` bitwise equal to the frames' resident ``matvec``s (K2 is
     bitwise repeatable), with and without the compute stream slowed
     before each frame (the side stream must wait for a slot's frame before
-    overwriting it); ``rmatvec`` and ``normal_matvec`` within 1e-6 of the
-    resident bucketed dynamic operator (K1 and K3 add with atomics); the
+    overwriting it); ``rmatvec`` bitwise the resident bucketed dynamic
+    operator's (K3 adds the same terms at the same scale: a frame's bound
+    is its matrix's, whatever the packing) and ``normal_matvec`` within
+    1e-6 (K1's stage 1 sums each row in its packing's order); the
     memory an apply holds at most the two slots, the output and a
     slack."""
     from trips_tpu_torch.parallel import StreamedDynamicBandedOperator
@@ -944,6 +1042,8 @@ def test_streamed_matches_resident_on_card(cuda, dynamic32, dtype):
                                     for k in bk.launch_counts}, fn
         if fn == "matvec":
             assert torch.equal(got, Ax_frames)
+        elif fn == "rmatvec":
+            assert torch.equal(got, res.rmatvec(v))
         else:
             assert _rel(got, getattr(res, fn)(v)) <= 1e-6, fn
     # the two-slot bound, in bytes requested (the allocator's rounding up

@@ -30,8 +30,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 ENTRY_POINTS = {
     # K1-K3: op, kind, nb, 5 pointer arrays (W, S, Pm, scales, aidx), 6 int
     # arrays (na, T, L, Tb, cols, fa), in, inT, out, p, rows, n, p_pad, G,
-    # det, parts, lines, nf, stream
-    "trips_banded": [_I] * 3 + [_P] * 14 + [_I] * 9 + [_P],
+    # det, parts, lines, nf, acc, amax, bound, bstride, finish, stream
+    "trips_banded": [_I] * 3 + [_P] * 14 + [_I] * 9 + [_P] * 3 + [_I] * 2
+                    + [_P],
     "trips_banded_max_buckets": [],
     # K4: kind, Q, kx, fx, ky, fy, kq, starts, out, na, C, ty, tx, w2, r1,
     # stream

@@ -45,13 +45,34 @@
 //   through distributed shared memory in rank order (deterministic) and
 //   writes them to row aidx[a] of the (rows, p) sinogram, d < p.
 // K3 (adj_kernel) reads y[d] from row aidx[a] of the sinogram (0 for
-//   d >= p) and back-projects it from the slab with global atomics into
-//   the image, zeroed once per apply (last bits vary run to run). Its parts
+//   d >= p) and back-projects it from the slab into the image. Its parts
 //   are independent blocks, not a cluster.
 // K1 (ata_kernel) runs K2's stage, sums y across the cluster so that
 //   every rank holds it, then K3's stage from the same slab. When the
 //   rank's lines took several chunks, stage 2 walks them backward and
 //   reloads all but the last, from L2 if it still holds them.
+//
+// Back-projection in fixed point (K1, K3). Every term v = w y[d] lands in
+// the image with a global atomic, so the order of the adds is the
+// scheduler's. The adds are integer: each term is scaled by 2^e, rounded
+// to int64 and added with red.global.add.u64 into an int64 image zeroed
+// once per apply; integer addition is associative, so the image is the
+// same bits whatever the order, and one last pass (fixed_to_float) writes
+// float(acc 2^-e). The terms are exact products of the float32 weight
+// and y[d] in double (24 + 24 bits), so no product overflows; rounding to
+// the 2^-e grid is the only rounding before the output's own.
+//   e, per frame: the wrapper passes the frame's bound B on |out| per unit
+// of input (sparse/banded_kernels.py pack_bound: K3 the largest column
+// abs-sum of the frame's matrix, K1 that times the largest row abs-sum,
+// since stage 1's |y[d]| is at most the row's abs-sum times max|X|) and
+// max|input| as a device reduction. With m = B max|input| < 2^k,
+// e = 61 - k: every partial sum stays below 2^62 (the float32 y of K1
+// exceeds its exact bound by far less than the factor 2 kept), the int64
+// cannot overflow for any finite input, and entry j's error is at most
+// N_j 2^(k-62) for its N_j terms, against a float32 half-unit of at least
+// 2^(k-41) for every entry above 2^-16 of m: N_j 2^-21 of it (N_j is a
+// few hundred). m = 0 gives a zero image; a non-finite m (a NaN or an inf
+// in the input) gives an image of NaN, never a silent zero.
 // A bucket with cols = 1 drives the transposed image XT and adds its
 // image transposed (K1, K3 through strides).
 //
@@ -71,6 +92,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cfloat>
 #include <cstddef>
 #include <cstdint>
 #include <algorithm>
@@ -128,10 +150,30 @@ struct Buckets {
 struct Args {
   const float* in;   // X (n, n); K3: the (rows, p) sinogram
   const float* inT;  // X transposed, for the cols buckets (K1, K2)
-  float* out;        // K2: the (rows, p) sinogram; K1, K3: (n, n), zeroed
+  float* out;        // K2: the (rows, p) sinogram; K1, K3: (n, n)
   int p, rows, n, p_pad, G, parts, lines;
   int nf;            // frames: in, inT and out hold nf of the above
+  // K1, K3: the int64 image (nf, n, n), zeroed; max|in| of each frame
+  // (nf,); the bound of frame f at bound[f * bstride]
+  unsigned long long* acc;
+  const float* amax;
+  const double* bound;
+  int bstride;
 };
+
+// The fixed-point scale of frame f (see the header): 1 with e set when its
+// terms add, 0 when m = 0 (a zero image), -1 when m is not finite.
+__device__ __forceinline__ int fixed_scale(const Args& A, int f, int* e) {
+  const double m =
+      A.bound[static_cast<size_t>(f) * A.bstride] * static_cast<double>(A.amax[f]);
+  *e = 0;
+  if (!(m <= DBL_MAX)) return -1;  // NaN or inf
+  if (m == 0.0) return 0;
+  int k;
+  frexp(m, &k);  // m < 2^k
+  *e = 61 - k;
+  return 1;
+}
 
 // One block's share of a (bucket, frame, angle, DET detectors) tile; g is
 // the angle's index in the bucket's pack.
@@ -219,28 +261,51 @@ __device__ __forceinline__ float fwd_chunk(const WT* slab, const float* Xb,
   return acc;
 }
 
-// Stage 2 on chunk c: back-project yd from this thread's lines with global
-// atomics; image element (line i, column col) at out[i * ri + col * ci].
+// Stage 2 on chunk c: back-project ys = y[d] 2^e from this thread's lines
+// into the int64 image with integer atomics; image element (line i, column
+// col) at acc[i * ri + col * ci].
 template <typename WT, int DET>
-__device__ __forceinline__ void adj_chunk(const WT* slab, float* out,
-                                          size_t ri, size_t ci, const Tile& t,
+__device__ __forceinline__ void adj_chunk(const WT* slab,
+                                          unsigned long long* acc, size_t ri,
+                                          size_t ci, const Tile& t,
                                           const Args& A, int c, int lane,
-                                          int slice, int d, float yd) {
+                                          int slice, int d, double ys) {
   constexpr int kSl = kThreads / DET;
   const size_t tstride = static_cast<size_t>(t.L) * DET;
   const int n = A.n, gsize = n / A.G;
   const int ib = t.i0 + c * t.L, nl = min(t.L, t.i1 - ib);
   for (int il = slice; il < nl; il += kSl) {
     const int i = ib + il;
-    float* oi = out + i * ri;
+    unsigned long long* oi = acc + i * ri;
     int col = wrap_col(t.Sa[i], t.Pma[(i / gsize) * A.p_pad + d], n);
     const WT* w = slab + il * DET + lane;
 #pragma unroll 4
     for (int tt = 0; tt < t.T; ++tt) {
-      const float v = slab_weight(w, tt * tstride, t.sc) * yd;
-      if (v != 0.f) atomicAdd(oi + col * ci, v);
+      const float wv = slab_weight(w, tt * tstride, t.sc);
+      if (wv != 0.f) {
+        const long long q = __double2ll_rn(static_cast<double>(wv) * ys);
+        if (q) atomicAdd(oi + col * ci, static_cast<unsigned long long>(q));
+      }
       if (++col == n) col = 0;
     }
+  }
+}
+
+// out = float(acc 2^-e) per frame; NaN where the frame's scale is not
+// finite (see the header).
+__global__ void __launch_bounds__(kThreads)
+    fixed_to_float(const Args A) {
+  const size_t img = static_cast<size_t>(A.n) * A.n;
+  const size_t total = img * A.nf;
+  const long long* acc = reinterpret_cast<const long long*>(A.acc);
+  for (size_t k = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
+       k < total; k += static_cast<size_t>(gridDim.x) * kThreads) {
+    int e;
+    const int s = fixed_scale(A, static_cast<int>(k / img), &e);
+    A.out[k] = s > 0 ? static_cast<float>(static_cast<double>(acc[k]) *
+                                          scalbn(1.0, -e))
+               : s == 0 ? 0.f
+                        : __int_as_float(0x7fc00000);
   }
 }
 
@@ -312,19 +377,25 @@ __global__ void __launch_bounds__(kThreads)
           ? A.in[(static_cast<size_t>(t.f) * A.rows + row) * A.p + dd]
           : 0.f;
   const size_t ri = B.cols[t.b] ? 1 : A.n, ci = B.cols[t.b] ? A.n : 1;
-  float* out = A.out + t.f * static_cast<size_t>(A.n) * A.n;
+  unsigned long long* acc = A.acc + t.f * static_cast<size_t>(A.n) * A.n;
+  int e;
+  if (fixed_scale(A, t.f, &e) <= 0) return;  // the whole block: no terms
+  const double ys = static_cast<double>(yd) * scalbn(1.0, e);
   init_bar(&bar);
   uint32_t phase = 0;
   for (int c = 0; c < t.nchunks; ++c) {
     if (c > 0) __syncthreads();
     load_chunk<WT, DET>(smem_raw, B, t, &bar, phase, c);
     if (yd != 0.f)
-      adj_chunk<WT, DET>(slab, out, ri, ci, t, A, c, lane, slice, d, yd);
+      adj_chunk<WT, DET>(slab, acc, ri, ci, t, A, c, lane, slice, d, ys);
   }
 }
 
+// 8 blocks an SM: the fixed-point stage 2 takes K1 to 39-40 registers a
+// thread (6 blocks an SM); capped at 32 it spills nothing and runs 2-9%
+// faster on an H100 (PERF.md, section 6)
 template <typename WT, int DET>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 8)
     ata_kernel(const __grid_constant__ Buckets B, const Args A) {
   constexpr int kSl = kThreads / DET;
   extern __shared__ __align__(128) uint8_t smem_raw[];
@@ -338,8 +409,10 @@ __global__ void __launch_bounds__(kThreads)
   const int d = min(t.d0 + lane, A.p_pad - 1);
   const size_t img = static_cast<size_t>(A.n) * A.n;
   const float* Xb = (B.cols[t.b] ? A.inT : A.in) + t.f * img;
-  float* out = A.out + t.f * img;
+  unsigned long long* fixed = A.acc + t.f * img;
   const size_t ri = B.cols[t.b] ? 1 : A.n, ci = B.cols[t.b] ? A.n : 1;
+  int e;
+  const bool live = fixed_scale(A, t.f, &e) > 0;  // the same for the block
   init_bar(&bar);
   uint32_t phase = 0;
   // stage 1
@@ -360,12 +433,13 @@ __global__ void __launch_bounds__(kThreads)
   // does not wait for the slowest rank
   asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
   // stage 2
-  for (int c = t.nchunks - 1; c >= 0; --c) {
+  const double ys = static_cast<double>(yd) * scalbn(1.0, e);
+  for (int c = live ? t.nchunks - 1 : -1; c >= 0; --c) {
     if (c < t.nchunks - 1) {
       __syncthreads();
       load_chunk<WT, DET>(smem_raw, B, t, &bar, phase, c);
     }
-    adj_chunk<WT, DET>(slab, out, ri, ci, t, A, c, lane, slice, d, yd);
+    adj_chunk<WT, DET>(slab, fixed, ri, ci, t, A, c, lane, slice, d, ys);
   }
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
@@ -394,13 +468,15 @@ int launch(int op, int nb, const void* const* W, const void* const* S,
            const void* const* Pm, const void* const* scales,
            const void* const* aidx, const int* na, const int* T,
            const int* L, const int* Tb, const int* cols, const int* fa,
-           const Args& A, cudaStream_t stream) {
+           const Args& A, int finish, cudaStream_t stream) {
   const int bad = static_cast<int>(cudaErrorInvalidValue);
   const bool cluster = op != kAdj;  // K3's parts need no shared memory
   if (op < kFwd || op > kAta || nb < 1 || nb > kMaxBuckets || A.parts < 1 ||
       (cluster && A.parts > kMaxCluster) || A.lines < 1 || A.G < 1 ||
       A.n % A.G || static_cast<long long>(A.parts) * A.lines < A.n ||
       A.nf < 1)
+    return bad;
+  if (op != kFwd && (!A.acc || !A.amax || !A.bound || A.bstride < 0))
     return bad;
   if (op != kAta && (!aidx || A.p < 1 || A.p > A.p_pad || A.rows < 1))
     return bad;
@@ -467,7 +543,13 @@ int launch(int op, int nb, const void* const* W, const void* const* S,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = cluster ? 1 : 0;
-  return static_cast<int>(cudaLaunchKernelEx(&cfg, kern, B, A));
+  err = static_cast<int>(cudaLaunchKernelEx(&cfg, kern, B, A));
+  if (err || op == kFwd || !finish) return err;
+  const long long total = static_cast<long long>(A.n) * A.n * A.nf;
+  const int grid = static_cast<int>(
+      std::min<long long>((total + kThreads - 1) / kThreads, 132 * 16));
+  fixed_to_float<<<grid, kThreads, 0, stream>>>(A);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -494,8 +576,13 @@ int trips_banded_max_buckets() { return kMaxBuckets; }
 // K2: in X, inT XT (nf, n, n), out the (nf, rows, p) float32 sinogram
 //     (frame f's angle a writes row aidx[k][f fa + a] of frame f's
 //     sinogram, detectors d < p, if that id lies in [0, rows)).
-// K3: in the (nf, rows, p) sinogram, out the (nf, n, n) images, zeroed.
-// K1: in X, inT, out the (nf, n, n) images, zeroed; aidx, p, rows unused.
+// K3: in the (nf, rows, p) sinogram, out the (nf, n, n) images.
+// K1: in X, inT, out the (nf, n, n) images; aidx, p, rows unused.
+// K1 and K3 add into acc, the int64 (nf, n, n) image, zeroed before the
+// first of an apply's launches; amax holds max|in| of each frame (nf,)
+// float32, bound the frames' bounds (float64; frame f's at f bstride;
+// see the header). The launch with finish = 1 (the apply's last) then
+// writes out from acc. K2 ignores acc, amax, bound, bstride and finish.
 int trips_banded(int op, int kind, int nb, const void* const* W,
                  const void* const* S, const void* const* Pm,
                  const void* const* scales, const void* const* aidx,
@@ -503,15 +590,19 @@ int trips_banded(int op, int kind, int nb, const void* const* W,
                  const int* cols, const int* fa, const void* in,
                  const void* inT, void* out, int p, int rows, int n,
                  int p_pad, int G, int det, int parts, int lines, int nf,
-                 void* stream) {
+                 void* acc, const void* amax, const void* bound, int bstride,
+                 int finish, void* stream) {
   const Args A = {static_cast<const float*>(in),
                   static_cast<const float*>(inT), static_cast<float*>(out),
-                  p, rows, n, p_pad, G, parts, lines, nf};
+                  p, rows, n, p_pad, G, parts, lines, nf,
+                  static_cast<unsigned long long*>(acc),
+                  static_cast<const float*>(amax),
+                  static_cast<const double*>(bound), bstride};
   auto go = [&](auto tag) {
     using WT = decltype(tag);
     auto run = [&](auto det_tag) {
       return launch<WT, decltype(det_tag)::value>(
-          op, nb, W, S, Pm, scales, aidx, na, T, L, Tb, cols, fa, A,
+          op, nb, W, S, Pm, scales, aidx, na, T, L, Tb, cols, fa, A, finish,
           static_cast<cudaStream_t>(stream));
     };
     if (det == 32) return run(std::integral_constant<int, 32>{});

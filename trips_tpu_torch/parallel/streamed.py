@@ -152,9 +152,14 @@ class StreamedDynamicBandedOperator(LinearOperator):
         for attr, name, ids in (("_fwd", "banded_fwd", aidx),
                                 ("_adj", "banded_adj", aidx),
                                 ("_ata", "banded_ata", None)):
+            # the slot is filled per apply: K1's and K3's fixed-point
+            # bounds come from the host frame's own stacks
+            bound = (None if name == "banded_fwd"
+                     else bk.pack_bound(name, op._bks, op.n_groups))
             setattr(tw, attr, functools.partial(
                 getattr(bk, name + "_buckets"),
-                prepared=bk.prepare(name, slot, bks, ids, op.n_groups)))
+                prepared=bk.prepare(name, slot, bks, ids, op.n_groups,
+                                    bound)))
         return tw
 
     def _upload(self, t, s):

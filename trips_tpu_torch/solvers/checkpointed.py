@@ -10,9 +10,8 @@ and shapes are the JAX package's, so a checkpoint written by one package
 resumes in the other.
 
 A resumed run repeats the uninterrupted one's operations in the same
-order on the same bytes: on the CPU it ends bitwise equal. On the card,
-K1 and K3 add with atomics, so two runs of the same solve, resumed or not,
-part in the last bits.
+order on the same bytes, so it ends bitwise equal, on the CPU and on the
+card (where K1 and K3 add in fixed point: the same bits every run).
 """
 from __future__ import annotations
 

@@ -34,6 +34,14 @@ block diagonal, the columns of a ``matmat``). An angle id is a row of its
 frame's sinogram; one outside ``[0, rows)`` (a padded angle) writes and
 reads nothing.
 
+K1 and K3 add their back-projection in fixed point on the card (the
+header of ``csrc/banded.cu``): each term scaled by ``2^e`` and rounded to
+int64, the sum integer, so equal inputs give equal bits from run to run
+and the order of the atomics does not matter. ``e`` comes, per frame,
+from ``pack_bound`` (made once per pack, from the stored weights) times
+max|input|. ``banded_adj_buckets_fixed`` and ``banded_ata_buckets_fixed``
+emulate that sum in PyTorch (int64 ``index_add_``).
+
 They replace ``_fwd_call``, ``_adj_call`` and ``_ata_call`` of
 ``trips_tpu/sparse/pallas_banded_kernel.py``, and their ``jax.vmap`` over
 frames in ``trips_tpu/sparse/dynamic_banded.py``. Each wrapper sends a CPU
@@ -188,6 +196,185 @@ def _rows(aidx):
     return sum(a.shape[-1] for a in aidx)
 
 
+# ---- fixed point (K1, K3) ------------------------------------------------
+# The bound's own sums: each |w| rounded up to a multiple of 2^-s, where
+# max|w| 2^s = 2^BOUND_BITS, and added as integers held in float64 (every
+# partial sum stays below 2^53, so each is exact in any order); the
+# bound is thereby a function of the matrix, not of its packing or of the
+# order of the adds.
+BOUND_BITS = 20
+_CHUNK = 1 << 22  # stored weights per step of the bound's sums
+
+
+def fixed_exponent(m):
+    """The fixed-point scale of ``m = bound * max|input|`` (float64
+    tensor, one per frame), as ``csrc/banded.cu`` ``fixed_scale`` takes
+    it: -> (e, state) int64 tensors, state 1 where the terms add at scale
+    ``2^e`` (``e = 61 - k`` for ``m < 2^k``: every partial sum below
+    2^62), 0 where ``m == 0`` (a zero image, e = 0), -1 where ``m`` is not
+    finite (an image of NaN, e = 0)."""
+    m = torch.as_tensor(m, dtype=torch.float64)
+    finite, zero = torch.isfinite(m), m == 0
+    k = torch.frexp(torch.where(finite & ~zero, m, 1.0)).exponent.long()
+    state = torch.where(finite, torch.where(zero, 0, 1), -1).long()
+    return torch.where(state > 0, 61 - k, 0), state
+
+
+def _frame_units(buckets):
+    """(frames F of the pack: its frame axis or 1, [(frame or None for
+    every frame, W, S, Pm, scales, cols)]): a bucket with a frame axis
+    gives one unit per frame, a shared one a single unit."""
+    nf = next((b[0].shape[0] for b in buckets if b[0].dim() == 5), 1)
+    units = []
+    for W, S, Pm, sc, cols in buckets:
+        if W.dim() == 5:
+            units += [(f, W[f], S[f], Pm[f], None if sc is None else sc[f],
+                       cols) for f in range(W.shape[0])]
+        else:
+            units.append((None, W, S, Pm, sc, cols))
+    return nf, units
+
+
+def abs_sums(buckets, n_groups):
+    """Per frame of the pack, (the largest column abs-sum, the largest
+    row abs-sum) of its matrix as the kernels see it (the dequantized
+    float32 weights), each rounded up by at most 2^-BOUND_BITS of the
+    frame's largest weight per term: two float64 tensors ``(F,)`` on the
+    buckets' device. The columns are the image's entries (a ``cols``
+    bucket's transposed), the rows the (angle, detector) pairs of a
+    bucket."""
+    nf, units = _frame_units(buckets)
+    dev = buckets[0][0].device
+    n = buckets[0][0].shape[-2]
+    wmax = torch.zeros(nf, dtype=torch.float64, device=dev)
+    for f, W, _, _, sc, _ in units:
+        m = dequant_slab(W, sc).abs().amax().double()
+        if f is None:
+            wmax = torch.maximum(wmax, m)
+        else:
+            wmax[f] = torch.maximum(wmax[f], m)
+    # 2^s per frame: max|w| 2^s in [2^(BOUND_BITS - 1), 2^BOUND_BITS)
+    exp = torch.frexp(torch.where(wmax > 0, wmax, 1.0)).exponent
+    scale = torch.pow(2.0, (BOUND_BITS - exp).double())
+    col = torch.zeros((nf, n * n), dtype=torch.float64, device=dev)
+    row = torch.zeros(nf, dtype=torch.float64, device=dev)
+    lines = torch.arange(n, device=dev)[None, None, :, None]
+    for f, W, S, Pm, sc, cols in units:
+        na, T = W.shape[0], W.shape[1]
+        step = max(1, _CHUNK // W[0].numel())
+        for a0 in range(0, na, step):
+            a1 = min(na, a0 + step)
+            w = dequant_slab(W[a0:a1], None if sc is None else sc[a0:a1])
+            c = _columns(S[a0:a1], Pm[a0:a1], n_groups, T, n)
+            flat = (c * n + lines if cols else lines * n + c).reshape(-1)
+            for g in range(nf) if f is None else (f,):
+                q = torch.ceil(w.double().abs() * scale[g])
+                col[g].index_add_(0, flat, q.reshape(-1))
+                row[g] = torch.maximum(row[g], q.sum(dim=(1, 2)).amax())
+    return col.amax(dim=1) / scale, row / scale
+
+
+def pack_bound(name, buckets, n_groups):
+    """Frame f's bound on ``|out| / max|input|`` for kernel ``name``:
+    ``banded_adj`` (K3) the largest column abs-sum, ``banded_ata`` (K1)
+    that times the largest row abs-sum (stage 1's ``|y[d]|`` is at most
+    the row's abs-sum times max|X|). float64 ``(F,)`` on the buckets'
+    device."""
+    col, row = abs_sums(buckets, n_groups)
+    return col if name == "banded_adj" else col * row
+
+
+def _fixed_sum(terms, index, size, e, state):
+    """The kernels' fixed-point sum of float64 ``terms`` into ``size``
+    entries at ``index`` for one frame: each term times ``2^e`` rounded
+    to int64 (half to even, as ``__double2ll_rn``), summed in int64, then
+    ``float(acc 2^-e)``; NaN where ``state < 0``."""
+    acc = torch.zeros(size, dtype=torch.int64, device=terms.device)
+    acc.index_add_(0, index, torch.round(terms * 2.0 ** int(e)).long())
+    out = (acc.double() * 2.0 ** -int(e)).float()
+    if state < 0:
+        out.fill_(float("nan"))
+    return out
+
+
+def _fixed_frame(parts, n, n_groups, e, state):
+    """One frame's back-projection into an ``(n, n)`` image in fixed point:
+    ``parts`` holds ``(W, S, Pm, scales, cols, y)`` per bucket, ``y (na,
+    p_pad)`` what each angle's detectors project back; every term ``w *
+    y[d]`` is exact in float64 (``_fixed_sum``)."""
+    lines = torch.arange(n, device=parts[0][0].device)[None, None, :, None]
+    terms, index = [], []
+    for W, S, Pm, sc, cols, y in parts:
+        c = _columns(S, Pm, n_groups, W.shape[1], n)
+        terms.append((dequant_slab(W, sc).double()
+                      * y.double()[:, None, None, :]).reshape(-1))
+        index.append((c * n + lines if cols else lines * n + c).reshape(-1))
+    return _fixed_sum(torch.cat(terms), torch.cat(index), n * n, e,
+                      state).view(n, n)
+
+
+def _max_abs(t, dims):
+    """max|t| per frame (frames in front of ``dims`` dimensions)."""
+    return t.abs().amax(dim=tuple(range(-dims, 0))).reshape(-1)
+
+
+def _scales(name, inp, buckets, n_groups, bound):
+    """(e, state) per frame of ``inp`` (frames in front of two
+    dimensions) for kernel ``name``: ``bound`` (``pack_bound`` unless
+    given) times max|inp[f]|."""
+    bound = (pack_bound(name, buckets, n_groups) if bound is None
+             else bound).to(inp.device)
+    return fixed_exponent(bound.expand(inp.shape[0])
+                          * _max_abs(inp, 2).double())
+
+
+def banded_adj_buckets_fixed(Y, buckets, aidx, n_groups, bound=None):
+    """K3's arithmetic on the card, in PyTorch: ``banded_adj_buckets``
+    with every term ``w * y[d]`` (exact in float64) added in fixed point
+    at frame f's scale from ``bound`` (``pack_bound("banded_adj", ...)``
+    unless given) and max|Y[f]|. Equal to the kernel's output bit for
+    bit."""
+    n = buckets[0][0].shape[-2]
+    Y, framed = _frames(Y, 2)
+    rows, p = Y.shape[1:]
+    e, state = _scales("banded_adj", Y, buckets, n_groups, bound)
+    out = torch.zeros((Y.shape[0], n, n), dtype=torch.float32,
+                      device=Y.device)
+    for f in range(Y.shape[0]):
+        parts = []
+        for bucket, ids in zip(buckets, aidx):
+            (W, S, Pm, sc, cols), ids = _in_frame(bucket, ids, f)
+            keep = (ids >= 0) & (ids < rows)
+            Yg = torch.zeros((W.shape[0], W.shape[3]), dtype=torch.float64,
+                             device=Y.device)
+            Yg[keep, :p] = Y[f].double()[ids[keep].long()]
+            parts.append((W, S, Pm, sc, cols, Yg))
+        out[f] = _fixed_frame(parts, n, n_groups, e[f], state[f])
+    return out if framed else out[0]
+
+
+def banded_ata_buckets_fixed(X, XT, buckets, n_groups, bound=None):
+    """K1's stage 2 on the card, in PyTorch: each bucket's float32 ``y =
+    banded_fwd_ref`` (the plain version's order of sums; the kernel's
+    order differs, so its y may differ in the last bits unless those sums
+    are exact), back-projected as ``banded_adj_buckets_fixed`` does at
+    frame f's scale from ``bound`` (``pack_bound("banded_ata", ...)``
+    unless given) and max|X[f]|."""
+    X, framed = _frames(X, 2)
+    XT = None if XT is None else _frames(XT, 2)[0]
+    e, state = _scales("banded_ata", X, buckets, n_groups, bound)
+    out = torch.zeros(X.shape, dtype=torch.float32, device=X.device)
+    for f in range(X.shape[0]):
+        parts = []
+        for bucket in buckets:
+            (W, S, Pm, sc, cols), _ = _in_frame(bucket, None, f)
+            y = banded_fwd_ref(XT[f] if cols else X[f], W, S, Pm, n_groups,
+                               sc)
+            parts.append((W, S, Pm, sc, cols, y))
+        out[f] = _fixed_frame(parts, X.shape[-1], n_groups, e[f], state[f])
+    return out if framed else out[0]
+
+
 # ---- plans ------------------------------------------------------------------
 def tile_plan(kernel, T, n, itemsize, parts=None):
     """How ``kernel`` (``banded_fwd``, ``banded_adj`` or ``banded_ata``)
@@ -320,18 +507,28 @@ def clear_plans():
     _PREPARED.clear()
 
 
-def prepare(name, inp, buckets, aidx, n_groups):
+def prepare(name, inp, buckets, aidx, n_groups, bound=None):
     """Check the buckets (``_check_buckets``) and make their launch
     arguments for kernel ``name`` (``banded_fwd``, ``banded_adj`` or
     ``banded_ata``; ``aidx`` None for K1) on ``inp``'s device: (n, p_pad,
-    the buckets' frame count or None, [(nb, ctypes arrays, plan)]), one
-    entry per launch of at most the library's
-    ``trips_banded_max_buckets``. The arguments hold the tensors' addresses,
-    not the tensors: a caller that keeps them (the wrappers' ``prepared``)
-    keeps the tensors alive and unmoved beside them."""
+    the buckets' frame count or None, [(nb, ctypes arrays, plan)], the
+    frames' fixed-point bounds (K1, K3: ``pack_bound`` of the buckets, a
+    float64 tensor on the device, unless ``bound`` gives it, as a caller
+    whose buckets are filled later must; K2: None)), one entry per launch
+    of at most the library's ``trips_banded_max_buckets``. The arguments
+    hold the tensors' addresses, not the tensors: a caller that keeps them
+    (the wrappers' ``prepared``) keeps the tensors alive and unmoved beside
+    them. The bound is taken once: a pack is not changed in place after."""
     from .. import _build
 
     n, p_pad, nf = _check_buckets(inp, buckets, aidx, n_groups)
+    if name != "banded_fwd":
+        bound = (pack_bound(name, buckets, n_groups) if bound is None
+                 else torch.as_tensor(bound))
+        bound = bound.to(inp.device, torch.float64).reshape(-1).contiguous()
+        if bound.numel() not in (1, nf or 1):
+            raise ValueError(f"{bound.numel()} bounds for a pack of "
+                             f"{nf or 1} frames")
     most = _build.load().trips_banded_max_buckets()
     launches = []
     for k in range(0, len(buckets), most):
@@ -349,7 +546,7 @@ def prepare(name, inp, buckets, aidx, n_groups):
         arrs = ([(ctypes.c_void_p * len(part))(*v) for v in cols[:5]]
                 + [(ctypes.c_int * len(part))(*v) for v in cols[5:]])
         launches.append((len(part), arrs, pl))
-    return n, p_pad, nf, launches
+    return n, p_pad, nf, launches, None if name == "banded_fwd" else bound
 
 
 def _prepare(name, inp, buckets, aidx, n_groups):
@@ -372,20 +569,33 @@ def _prepare(name, inp, buckets, aidx, n_groups):
 
 
 def _launch(name, inp, inp_t, out, kind, launches, p, rows, n, p_pad,
-            n_groups, nf):
+            n_groups, nf, bound=None):
     """Launch kernel ``name`` over ``nf`` frames with the arguments from
-    ``_prepare``; raises if a launch fails."""
+    ``_prepare``; raises if a launch fails. K1 and K3 (``bound``: the
+    frames' bounds from ``prepare``) add into a zeroed int64 image at the
+    scale of ``bound`` and max|inp| per frame; the last launch writes
+    ``out`` from it. That image and max|inp| are allocated here, per
+    apply, on the current stream (the caching allocator reuses their
+    memory only after the stream's kernels): nothing kept in ``prepared``
+    refers to them."""
     from .. import _build
 
     lib = _build.load()
+    fixed = (None, None, None, 0)
+    if bound is not None:
+        acc = torch.zeros(out.shape, dtype=torch.int64, device=out.device)
+        amax = _max_abs(inp, 2)
+        fixed = (acc.data_ptr(), amax.data_ptr(), bound.data_ptr(),
+                 int(bound.numel() > 1))
     with torch.cuda.device(inp.device):
         stream = torch.cuda.current_stream(inp.device).cuda_stream
-        for nb, arrs, pl in launches:
+        for k, (nb, arrs, pl) in enumerate(launches):
             err = lib.trips_banded(
                 _OP[name], _KIND[kind], nb,
                 *(ctypes.addressof(a) for a in arrs), inp.data_ptr(),
                 inp_t.data_ptr(), out.data_ptr(), p, rows, n, p_pad,
-                n_groups, pl["det"], pl["parts"], pl["lines"], nf, stream)
+                n_groups, pl["det"], pl["parts"], pl["lines"], nf, *fixed,
+                int(k == len(launches) - 1), stream)
             if err:
                 _PREPARED.clear()  # nothing kept from a refused launch
                 raise RuntimeError(f"{name} launch failed: CUDA error {err}")
@@ -432,7 +642,7 @@ def banded_fwd_buckets(X, XT, buckets, aidx, p, n_groups, rows=None,
     if X.device.type == "cpu":
         return banded_fwd_buckets_ref(X, XT, buckets, aidx, p, n_groups,
                                       rows)
-    n, p_pad, nf_pack, launches = prepared or _prepare(
+    n, p_pad, nf_pack, launches, _ = prepared or _prepare(
         "banded_fwd", X, buckets, aidx, n_groups)
     nf, XT = _check_images(X, XT, buckets, n, nf_pack)
     if not 1 <= p <= p_pad:
@@ -450,21 +660,22 @@ def banded_adj_buckets(Y, buckets, aidx, n_groups, prepared=None):
     ``aidx`` as for ``banded_fwd_buckets``; bucket k's angle a reads row
     ``aidx[k][a]`` (zero beyond ``p``), a bucket with ``cols`` adds its
     image transposed. -> ``(n, n)`` float32 (``(nf, n, n)``), the sum of
-    ``banded_adj`` over the buckets. ``prepared`` as for
+    ``banded_adj`` over the buckets, added in fixed point on the card
+    (``banded_adj_buckets_fixed``). ``prepared`` as for
     ``banded_fwd_buckets``."""
     if Y.device.type == "cpu":
         return banded_adj_buckets_ref(Y, buckets, aidx, n_groups)
-    n, p_pad, nf_pack, launches = prepared or _prepare(
+    n, p_pad, nf_pack, launches, bound = prepared or _prepare(
         "banded_adj", Y, buckets, aidx, n_groups)
     nf = _frame_count(Y, 2, nf_pack, "Y")
     if not 1 <= Y.shape[-1] <= p_pad:
         raise ValueError(f"Y must be ([nf,] rows, p) with p <= p_pad="
                          f"{p_pad}, got {tuple(Y.shape)}")
     _check_tensor(Y, Y.device, torch.float32, Y.shape, "Y")
-    out = torch.zeros(Y.shape[:-2] + (n, n), dtype=torch.float32,
+    out = torch.empty(Y.shape[:-2] + (n, n), dtype=torch.float32,
                       device=Y.device)
     return _launch("banded_adj", Y, Y, out, buckets[0][0].dtype, launches,
-                   Y.shape[-1], Y.shape[-2], n, p_pad, n_groups, nf)
+                   Y.shape[-1], Y.shape[-2], n, p_pad, n_groups, nf, bound)
 
 
 def banded_ata_buckets(X, XT, buckets, n_groups, prepared=None):
@@ -472,16 +683,17 @@ def banded_ata_buckets(X, XT, buckets, n_groups, prepared=None):
     ``(W, S, Pm, scales, cols)``; a bucket with ``cols`` drives ``XT`` (the
     transposed image, contiguous) and its image is transposed before the
     sum. ``X`` is ``(n, n)`` or frames ``(nf, n, n)``. -> float32 of
-    ``X``'s shape, the sum of ``banded_ata`` over the buckets.
+    ``X``'s shape, the sum of ``banded_ata`` over the buckets, stage 2
+    added in fixed point on the card (``banded_ata_buckets_fixed``).
     ``prepared`` as for ``banded_fwd_buckets``."""
     if X.device.type == "cpu":
         return banded_ata_buckets_ref(X, XT, buckets, n_groups)
-    n, p_pad, nf_pack, launches = prepared or _prepare(
+    n, p_pad, nf_pack, launches, bound = prepared or _prepare(
         "banded_ata", X, buckets, None, n_groups)
     nf, XT = _check_images(X, XT, buckets, n, nf_pack)
-    out = torch.zeros(X.shape, dtype=torch.float32, device=X.device)
+    out = torch.empty(X.shape, dtype=torch.float32, device=X.device)
     return _launch("banded_ata", X, XT, out, buckets[0][0].dtype, launches,
-                   0, 0, n, p_pad, n_groups, nf)
+                   0, 0, n, p_pad, n_groups, nf, bound)
 
 
 def _ids(W, dev):
