@@ -1,7 +1,8 @@
 """K1's and K3's fixed-point back-projection (``csrc/banded.cu``), on the
 CPU: the scale (``fixed_exponent``), the packs' bounds (``abs_sums``,
-``pack_bound``) and the PyTorch emulation of the kernels' sum
-(``banded_adj_buckets_fixed``, ``banded_ata_buckets_fixed``).
+``pack_bounds``) and the PyTorch emulation of the kernels' sum
+(``tests/torch_fixed_point.py``: ``banded_adj_buckets_fixed``,
+``banded_ata_buckets_fixed``).
 
 - ``fixed_exponent`` on zero, huge, tiny, subnormal and non-finite inputs.
 - Every pack's bounds against the true column and row abs-sums of its
@@ -14,8 +15,10 @@ CPU: the scale (``fixed_exponent``), the packs' bounds (``abs_sums``,
   of the float64 sum and identical under a permuted term order; the
   emulations within 1e-6 of the plain versions (the gates of
   ``tests/test_torch_banded_buckets.py``); a zero input gives zeros and a
-  non-finite one NaN; a frame's K3 the same bits from the dynamic pack and
-  from that frame's own pack (equal bounds whatever the packing).
+  non-finite one NaN, as does a finite X whose K1 stage-1 ``y`` overflows
+  float32; a frame's K3 the same bits from the dynamic pack and from that
+  frame's own pack (equal bounds whatever the packing); K1's and K3's
+  bounds of one pack from one ``abs_sums`` pass, kept with the pack.
 """
 import os
 
@@ -30,6 +33,8 @@ from trips_tpu_torch.sparse import (BandedProjector, BucketedBandedProjector,
                                     BucketedDynamicBandedOperator,
                                     DynamicBandedOperator)
 from trips_tpu_torch.sparse import banded_kernels as bk
+
+import torch_fixed_point as fx
 
 KINDS = {"float32": None, "bfloat16": torch.bfloat16, "int8": "int8"}
 RTOL = 1e-6
@@ -98,7 +103,7 @@ def test_fixed_exponent_edges():
     m = torch.tensor([0.0, 1.0, 3.0, 3.4e38 * 1e4, 1e-30, sub,
                       sub * sub, float("inf"),
                       -float("inf"), float("nan")], dtype=torch.float64)
-    e, state = bk.fixed_exponent(m)
+    e, state = fx.fixed_exponent(m)
     assert state.tolist() == [0] + [1] * 6 + [-1] * 3
     assert e[0] == 0 and (e[7:] == 0).all()
     live = m[1:7] * torch.pow(2.0, e[1:7].double())
@@ -120,10 +125,9 @@ def test_pack_bounds_static(form, kind, matrix):
     assert col.shape == row.shape == (1,) and col.dtype == torch.float64
     tc, tr = _true_sums(op.to_scipy())
     assert _close_above(float(col), tc) and _close_above(float(row), tr)
-    assert torch.equal(bk.pack_bound("banded_adj", op._bks, op.n_groups),
-                       col)
-    assert torch.equal(bk.pack_bound("banded_ata", op._bks, op.n_groups),
-                       col * row)
+    bounds = bk.pack_bounds(op._bks, op.n_groups)
+    assert torch.equal(bounds["banded_adj"], col)
+    assert torch.equal(bounds["banded_ata"], col * row)
 
 
 # the flat dynamic pack stores float32 or bfloat16
@@ -162,9 +166,9 @@ def test_pack_bounds_shared(matrix):
     rows = op.shape[0] // op.det_count
     Y = torch.tensor(rng.standard_normal((3, rows, op.det_count)),
                      dtype=torch.float32)
-    got = bk.banded_adj_buckets_fixed(Y, op._bks, op._aidx, op.n_groups)
+    got = fx.banded_adj_buckets_fixed(Y, op._bks, op._aidx, op.n_groups)
     for f in range(3):
-        assert torch.equal(got[f], bk.banded_adj_buckets_fixed(
+        assert torch.equal(got[f], fx.banded_adj_buckets_fixed(
             Y[f], op._bks, op._aidx, op.n_groups))
 
 
@@ -176,11 +180,11 @@ def test_fixed_sum_exact_and_order_free():
     want = torch.zeros(64, dtype=torch.float64).index_add_(0, index, terms)
     m = torch.zeros(64, dtype=torch.float64).index_add_(
         0, index, terms.abs()).max()
-    e, state = bk.fixed_exponent(m)
-    got = bk._fixed_sum(terms, index, 64, e, state)
+    e, state = fx.fixed_exponent(m)
+    got = fx.fixed_sum(terms, index, 64, e, state)
     assert float((got.double() - want).norm() / want.norm()) <= RTOL
     perm = torch.from_numpy(rng.permutation(20000))
-    assert torch.equal(got, bk._fixed_sum(terms[perm], index[perm], 64, e,
+    assert torch.equal(got, fx.fixed_sum(terms[perm], index[perm], 64, e,
                                           state))
     # one term at a time in reverse: the same bits
     acc = torch.zeros(64, dtype=torch.int64)
@@ -201,24 +205,24 @@ def test_emulation_matches_plain(kind, matrix):
                      dtype=torch.float32)
     XT = X.T.contiguous()
     for got, ref in (
-            (bk.banded_adj_buckets_fixed(Y, op._bks, op._aidx, op.n_groups),
+            (fx.banded_adj_buckets_fixed(Y, op._bks, op._aidx, op.n_groups),
              bk.banded_adj_buckets_ref(Y, op._bks, op._aidx, op.n_groups)),
-            (bk.banded_ata_buckets_fixed(X, XT, op._bks, op.n_groups),
+            (fx.banded_ata_buckets_fixed(X, XT, op._bks, op.n_groups),
              bk.banded_ata_buckets_ref(X, XT, op._bks, op.n_groups))):
         assert got.shape == ref.shape and got.dtype == torch.float32
         assert float((got - ref).norm() / ref.norm()) <= RTOL
     # zero in, zeros out; a NaN or an inf in, NaN out (never zeros)
-    z = bk.banded_adj_buckets_fixed(torch.zeros_like(Y), op._bks, op._aidx,
+    z = fx.banded_adj_buckets_fixed(torch.zeros_like(Y), op._bks, op._aidx,
                                     op.n_groups)
     assert torch.equal(z, torch.zeros_like(z))
     for bad in (float("nan"), float("inf")):
         Yb = Y.clone()
         Yb[0, 0] = bad
-        assert torch.isnan(bk.banded_adj_buckets_fixed(
+        assert torch.isnan(fx.banded_adj_buckets_fixed(
             Yb, op._bks, op._aidx, op.n_groups)).all()
         Xb = X.clone()
         Xb[1, 2] = bad
-        assert torch.isnan(bk.banded_ata_buckets_fixed(
+        assert torch.isnan(fx.banded_ata_buckets_fixed(
             Xb, Xb.T.contiguous(), op._bks, op.n_groups)).all()
 
 
@@ -232,13 +236,13 @@ def test_emulation_frames_and_packings(dynamic):
     rng = np.random.default_rng(6)
     Y = torch.tensor(rng.standard_normal((nt, op.views, op.det_count)),
                      dtype=torch.float32)
-    got = bk.banded_adj_buckets_fixed(Y, op._bks, op._aidx, op.n_groups)
+    got = fx.banded_adj_buckets_fixed(Y, op._bks, op._aidx, op.n_groups)
     ref = bk.banded_adj_buckets_ref(Y, op._bks, op._aidx, op.n_groups)
     assert float((got - ref).norm() / ref.norm()) <= RTOL
     X = torch.tensor(rng.standard_normal((nt, op.n_pad, op.n_pad)),
                      dtype=torch.float32)
     XT = X.transpose(1, 2).contiguous()
-    a = bk.banded_ata_buckets_fixed(X, XT, op._bks, op.n_groups)
+    a = fx.banded_ata_buckets_fixed(X, XT, op._bks, op.n_groups)
     r = bk.banded_ata_buckets_ref(X, XT, op._bks, op.n_groups)
     assert float((a - r).norm() / r.norm()) <= RTOL
     for t in range(nt):
@@ -248,8 +252,48 @@ def test_emulation_frames_and_packings(dynamic):
         Yt = torch.zeros((fop.shape[0] // fop.det_count, fop.det_count))
         Yt[:, :op.det_count] = Y[t, :Yt.shape[0], :fop.det_count]
         assert fop.det_count == op.det_count
-        one = bk.banded_adj_buckets_fixed(Yt, fop._bks, fop._aidx,
+        one = fx.banded_adj_buckets_fixed(Yt, fop._bks, fop._aidx,
                                           fop.n_groups)
-        assert torch.equal(bk.pack_bound("banded_adj", fop._bks, 8),
-                           bk.pack_bound("banded_adj", op._bks, 8)[t:t + 1])
+        assert torch.equal(bk.pack_bounds(fop._bks, 8)["banded_adj"],
+                           bk.pack_bounds(op._bks, 8)["banded_adj"][t:t + 1])
         assert torch.equal(one, got[t]), t
+
+
+def test_stage1_overflow_gives_nan(matrix):
+    """A finite X whose stage-1 ``y`` overflows float32 (its entries near
+    FLT_MAX; the bound times max|X| stays finite in float64): K1's image is
+    NaN, as the plain version's is not finite, never a wrapped integer
+    sum."""
+    op = _pack("float32", "bucketed", matrix)
+    X = torch.full((op.n_pad, op.n_pad), 3e38)
+    XT = X.T.contiguous()
+    bound = bk.pack_bounds(op._bks, op.n_groups)["banded_ata"]
+    assert torch.isfinite(bound * 3e38).all()
+    ref = bk.banded_ata_buckets_ref(X, XT, op._bks, op.n_groups)
+    assert not torch.isfinite(ref).all()
+    assert torch.isnan(fx.banded_ata_buckets_fixed(
+        X, XT, op._bks, op.n_groups)).all()
+
+
+def test_bounds_one_pass_per_pack(matrix, monkeypatch):
+    """``_prepare`` makes K1's and K3's bounds of one pack from a single
+    ``abs_sums`` pass and keeps them while the pack's tensors live."""
+    op = _pack("float32", "bucketed", matrix)
+    calls = []
+    true_sums = bk.abs_sums
+    monkeypatch.setattr(bk, "abs_sums",
+                        lambda *a: calls.append(1) or true_sums(*a))
+    monkeypatch.setattr(bk, "prepare", lambda name, inp, b, ids, g, bound:
+                        (name, bound))
+    bk.clear_plans()
+    X = torch.zeros((op.n_pad, op.n_pad))
+    got = {name: bk._prepare(name, X, op._bks, ids, op.n_groups)[1]
+           for name, ids in (("banded_adj", op._aidx), ("banded_ata", None),
+                             ("banded_fwd", op._aidx))}
+    assert len(calls) == 1 and got["banded_fwd"] is None
+    want = true_sums(op._bks, op.n_groups)
+    assert torch.equal(got["banded_adj"], want[0])
+    assert torch.equal(got["banded_ata"], want[0] * want[1])
+    bk._prepare("banded_adj", X, op._bks, op._aidx, op.n_groups)
+    assert len(calls) == 1
+    bk.clear_plans()

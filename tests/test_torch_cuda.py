@@ -9,7 +9,7 @@ Float32 sums run in another order, so the kernels agree with the plain
 versions to 1e-5 of the norm; K2, K4 and K5 sum in a fixed order and K1
 and K3 back-project in fixed point (integer atomics), so all five give
 the same bits from run to run, K1 and K3 those of their PyTorch
-emulation (``banded_*_buckets_fixed``). A
+emulation (``tests/torch_fixed_point.py``). A
 bfloat16 output (K4's canvases, K6's U before its second product) may
 round an entry one bf16 step the other way: 1e-3 there. K6's float32 path
 sums 3xTF32 products (each within 2^-22 of the float32 product), also held
@@ -27,6 +27,8 @@ from trips_tpu_torch.operators import shear_kernels as sk
 from trips_tpu_torch.problems.projector import fan_beam_matrix
 from trips_tpu_torch.sparse import BucketedBandedProjector
 from trips_tpu_torch.sparse import banded_kernels as bk
+
+import torch_fixed_point as fx
 
 pytestmark = pytest.mark.cuda
 KINDS = [None, torch.bfloat16, "int8"]
@@ -427,13 +429,13 @@ def test_fixed_point_repeats_and_emulation(cuda, geometries, dtype):
     cpu = _to_cpu(op._bks)
     ids = [a.cpu() for a in op._aidx]
     got = bk.banded_adj_buckets(Y, op._bks, op._aidx, op.n_groups).cpu()
-    assert torch.equal(got, bk.banded_adj_buckets_fixed(Y.cpu(), cpu, ids,
+    assert torch.equal(got, fx.banded_adj_buckets_fixed(Y.cpu(), cpu, ids,
                                                         op.n_groups))
     dy = _dyadic(op)
     Xi = torch.randint(-4, 5, (op.n_pad, op.n_pad), device=cuda,
                        generator=g).float()
     got = bk.banded_ata_buckets(Xi, Xi.T.contiguous(), dy, op.n_groups)
-    want = bk.banded_ata_buckets_fixed(Xi.cpu(), Xi.T.contiguous().cpu(),
+    want = fx.banded_ata_buckets_fixed(Xi.cpu(), Xi.T.contiguous().cpu(),
                                        _to_cpu(dy), op.n_groups)
     assert torch.equal(got.cpu(), want)
     zero = bk.banded_adj_buckets(torch.zeros_like(Y), op._bks, op._aidx,
@@ -446,6 +448,13 @@ def test_fixed_point_repeats_and_emulation(cuda, geometries, dtype):
             Yb, op._bks, op._aidx, op.n_groups)).all()
         assert torch.isnan(bk.banded_ata_buckets(
             Xb, Xb.T.contiguous(), op._bks, op.n_groups)).all()
+    # a finite X whose stage-1 y overflows float32: NaN (the frame's flag),
+    # never a wrapped integer sum
+    Xo = torch.full_like(X, 3e38)
+    assert not torch.isfinite(bk.banded_ata_buckets_ref(
+        Xo.cpu(), Xo.T.contiguous().cpu(), cpu, op.n_groups)).all()
+    assert torch.isnan(bk.banded_ata_buckets(
+        Xo, Xo.T.contiguous(), op._bks, op.n_groups)).all()
 
 
 @pytest.mark.parametrize("name", ["banded_fwd", "banded_adj"])
@@ -687,7 +696,7 @@ def test_fixed_point_frames(cuda, dynamic32, kind, dtype):
         first = fn(*args)
         assert all(torch.equal(first, fn(*args)) for _ in range(4))
     img = bk.banded_adj_buckets(Y, op._bks, op._aidx, op.n_groups)
-    assert torch.equal(img.cpu(), bk.banded_adj_buckets_fixed(
+    assert torch.equal(img.cpu(), fx.banded_adj_buckets_fixed(
         Y.cpu(), _to_cpu(op._bks), [a.cpu() for a in op._aidx],
         op.n_groups))
     # one launch per bucket: the int64 image carries over between them

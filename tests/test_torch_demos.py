@@ -14,7 +14,8 @@ returned, in order, from
 there holds the arguments below). The fused dynamic twin's resume must
 equal its uninterrupted run bit for bit, as the JAX demo asserts. The
 dynamic twin's loaders read only files already present: without one
-they raise, before any solve.
+they raise, before any solve. ``tests/test_torch_demos_jax.py`` runs each
+twin's own problem and solves against the JAX demo's, live, in float64.
 """
 import numpy as np
 import pytest

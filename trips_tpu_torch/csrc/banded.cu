@@ -68,11 +68,15 @@
 // max|input| as a device reduction. With m = B max|input| < 2^k,
 // e = 61 - k: every partial sum stays below 2^62 (the float32 y of K1
 // exceeds its exact bound by far less than the factor 2 kept), the int64
-// cannot overflow for any finite input, and entry j's error is at most
-// N_j 2^(k-62) for its N_j terms, against a float32 half-unit of at least
-// 2^(k-41) for every entry above 2^-16 of m: N_j 2^-21 of it (N_j is a
-// few hundred). m = 0 gives a zero image; a non-finite m (a NaN or an inf
-// in the input) gives an image of NaN, never a silent zero.
+// cannot overflow while every term is finite, and entry j's error is at
+// most N_j 2^(k-62) for its N_j terms, against a float32 half-unit of at
+// least 2^(k-41) for every entry above 2^-16 of m: N_j 2^-21 of it (N_j is
+// a few hundred). m = 0 gives a zero image; a non-finite m (a NaN or an
+// inf in the input) gives an image of NaN, never a silent zero. So does a
+// finite X whose stage-1 y overflows float32 in K1 (possible once the row
+// bound times max|X| passes FLT_MAX, while m, in double, stays finite):
+// the block that meets it sets the frame's flag, one int64 per frame
+// after the nf images in acc, and fixed_to_float writes NaN there.
 // A bucket with cols = 1 drives the transposed image XT and adds its
 // image transposed (K1, K3 through strides).
 //
@@ -153,8 +157,9 @@ struct Args {
   float* out;        // K2: the (rows, p) sinogram; K1, K3: (n, n)
   int p, rows, n, p_pad, G, parts, lines;
   int nf;            // frames: in, inT and out hold nf of the above
-  // K1, K3: the int64 image (nf, n, n), zeroed; max|in| of each frame
-  // (nf,); the bound of frame f at bound[f * bstride]
+  // K1, K3: the int64 image (nf, n, n) and one flag per frame after it,
+  // zeroed; max|in| of each frame (nf,); the bound of frame f at
+  // bound[f * bstride]
   unsigned long long* acc;
   const float* amax;
   const double* bound;
@@ -292,7 +297,7 @@ __device__ __forceinline__ void adj_chunk(const WT* slab,
 }
 
 // out = float(acc 2^-e) per frame; NaN where the frame's scale is not
-// finite (see the header).
+// finite or its flag is set (see the header).
 __global__ void __launch_bounds__(kThreads)
     fixed_to_float(const Args A) {
   const size_t img = static_cast<size_t>(A.n) * A.n;
@@ -300,8 +305,9 @@ __global__ void __launch_bounds__(kThreads)
   const long long* acc = reinterpret_cast<const long long*>(A.acc);
   for (size_t k = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
        k < total; k += static_cast<size_t>(gridDim.x) * kThreads) {
-    int e;
-    const int s = fixed_scale(A, static_cast<int>(k / img), &e);
+    int e = 0;
+    const int f = static_cast<int>(k / img);
+    const int s = acc[total + f] ? -1 : fixed_scale(A, f, &e);
     A.out[k] = s > 0 ? static_cast<float>(static_cast<double>(acc[k]) *
                                           scalbn(1.0, -e))
                : s == 0 ? 0.f
@@ -432,7 +438,9 @@ __global__ void __launch_bounds__(kThreads, 8)
   // so no block leaves while another still reads its ypart, and stage 2
   // does not wait for the slowest rank
   asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-  // stage 2
+  // stage 2; a y that overflowed float32 flags the frame (see the header)
+  if (live && !isfinite(yd))
+    atomicOr(A.acc + A.nf * img + t.f, 1ull);
   const double ys = static_cast<double>(yd) * scalbn(1.0, e);
   for (int c = live ? t.nchunks - 1 : -1; c >= 0; --c) {
     if (c < t.nchunks - 1) {
@@ -578,8 +586,9 @@ int trips_banded_max_buckets() { return kMaxBuckets; }
 //     sinogram, detectors d < p, if that id lies in [0, rows)).
 // K3: in the (nf, rows, p) sinogram, out the (nf, n, n) images.
 // K1: in X, inT, out the (nf, n, n) images; aidx, p, rows unused.
-// K1 and K3 add into acc, the int64 (nf, n, n) image, zeroed before the
-// first of an apply's launches; amax holds max|in| of each frame (nf,)
+// K1 and K3 add into acc, the int64 (nf, n, n) image followed by nf
+// flags (nf n n + nf entries), zeroed before the first of an apply's
+// launches; amax holds max|in| of each frame (nf,)
 // float32, bound the frames' bounds (float64; frame f's at f bstride;
 // see the header). The launch with finish = 1 (the apply's last) then
 // writes out from acc. K2 ignores acc, amax, bound, bstride and finish.

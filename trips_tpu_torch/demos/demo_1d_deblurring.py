@@ -26,6 +26,56 @@ def relerr(x, xt):
     return np.linalg.norm(x - xt) / np.linalg.norm(xt)
 
 
+def problem(n, parameter, device, dtype):
+    """The demo's inputs after ``np.random.seed(0)``: (A, A_dense, b,
+    delta, delta_total, x_true), ``A`` the ``Blur1D`` operator of
+    ``dtype`` on ``device``, ``A_dense`` its host matrix, ``b`` the noisy
+    data (NumPy float64), ``delta_total`` the total discrepancy."""
+    np.random.seed(0)
+    prob = Deblurring1D(device=device, dtype=dtype)
+    A = prob.forward_Op_1D(parameter=parameter, nx=n)
+    x_true = prob.gen_xtrue(n, "curve0")
+    b_true = prob.gen_data(x_true, parameter=parameter)
+    b, delta = prob.add_noise(b_true, "Gaussian", 0.02)
+    A_dense = A.mat.cpu().numpy()
+    b = np.asarray(b).reshape(-1)
+    # anti-inverse-crime data carries model error beyond the additive noise;
+    # DP needs the total discrepancy or it is unattainable (lam -> 0)
+    delta_total = float(np.linalg.norm(
+        b - A_dense @ np.asarray(x_true).reshape(-1)))
+    return A, A_dense, b, float(delta), delta_total, x_true
+
+
+def solves(A, A_dense, b, delta, delta_total, n_iter):
+    """The demo's solves, in its order: {name: solve}, each solve a
+    function of no arguments returning (x, its second result); a name with
+    ``{}`` takes that result (k, lam). The direct solvers factor
+    ``A_dense`` on the host in float64, x in ``A``'s dtype on its
+    device."""
+    dev, dt, n = A.device, A.dtype, A.shape[1]
+    bt = torch.tensor(b, dtype=dt, device=dev)
+    L_sq = np.vstack([first_derivative_matrix(n).toarray(), np.zeros((1, n))])
+    L = FirstDerivative1D(n, device=dev)
+    return {
+        "TSVD (dp, k={})": lambda: tSVD_sol(
+            A_dense, b, regparam="dp", delta=delta, device=dev, dtype=dt),
+        "TGSVD (dp, k={})": lambda: tGSVD_sol(
+            A_dense, L_sq, b, regparam="dp", delta=delta, device=dev,
+            dtype=dt),
+        "Tikhonov (dp, lam={:.2e})": lambda: Tikhonov(
+            A_dense, b, np.eye(n), regparam="dp", delta=delta, device=dev,
+            dtype=dt),
+        "Hybrid GMRES (dp)": lambda: Hybrid_GMRES(
+            A, bt, n_iter=n_iter, regparam="dp", delta=delta_total,
+            reorth=True),
+        "Hybrid LSQR (dp)": lambda: Hybrid_LSQR(
+            A, bt, n_iter=n_iter, regparam="dp", delta=delta_total,
+            reorth=True),
+        "GKS (dp)": lambda: GKS(A, bt, L, projection_dim=3, n_iter=n_iter,
+                                regparam="dp", delta=delta),
+    }
+
+
 def main(argv=None):
     """Run the demo and print its lines; returns {name: relError}."""
     ap = argparse.ArgumentParser()
@@ -35,49 +85,14 @@ def main(argv=None):
     ap.add_argument("--plot", action="store_true")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    dev = args.device
 
-    np.random.seed(0)
-    n = args.n
-    prob = Deblurring1D(device=dev, dtype=torch.float32)
-    A = prob.forward_Op_1D(parameter=args.parameter, nx=n)
-    x_true = prob.gen_xtrue(n, "curve0")
-    b_true = prob.gen_data(x_true, parameter=args.parameter)
-    b, delta = prob.add_noise(b_true, "Gaussian", 0.02)
-    delta = float(delta)
-    A_dense = A.mat.cpu().numpy()
-    # anti-inverse-crime data carries model error beyond the additive noise;
-    # DP needs the total discrepancy or it is unattainable (lam -> 0)
-    delta_total = float(np.linalg.norm(
-        np.asarray(b).reshape(-1) - A_dense @ np.asarray(x_true).reshape(-1)))
-    bt = torch.tensor(np.asarray(b).reshape(-1), dtype=torch.float32,
-                      device=A.device)
-
+    A, A_dense, b, delta, delta_total, x_true = problem(
+        args.n, args.parameter, args.device, torch.float32)
     results = {}
-    x, k = tSVD_sol(A_dense, b, regparam="dp", delta=delta, device=dev)
-    results[f"TSVD (dp, k={k})"] = relerr(x, x_true)
-
-    L_sq = np.vstack([first_derivative_matrix(n).toarray(), np.zeros((1, n))])
-    x, k = tGSVD_sol(A_dense, L_sq, b, regparam="dp", delta=delta,
-                     device=dev)
-    results[f"TGSVD (dp, k={k})"] = relerr(x, x_true)
-
-    x, lam = Tikhonov(A_dense, b, np.eye(n), regparam="dp", delta=delta,
-                      device=dev)
-    results[f"Tikhonov (dp, lam={lam:.2e})"] = relerr(x, x_true)
-
-    x, info = Hybrid_GMRES(A, bt, n_iter=args.iters, regparam="dp",
-                           delta=delta_total, reorth=True)
-    results["Hybrid GMRES (dp)"] = relerr(x, x_true)
-
-    x, info = Hybrid_LSQR(A, bt, n_iter=args.iters, regparam="dp",
-                          delta=delta_total, reorth=True)
-    results["Hybrid LSQR (dp)"] = relerr(x, x_true)
-
-    L = FirstDerivative1D(n, device=A.device)
-    x, info = GKS(A, bt, L, projection_dim=3, n_iter=args.iters,
-                  regparam="dp", delta=delta)
-    results["GKS (dp)"] = relerr(x, x_true)
+    for name, solve in solves(A, A_dense, b, delta, delta_total,
+                              args.iters).items():
+        x, info = solve()
+        results[name.format(info)] = relerr(x, x_true)
 
     for name, err in results.items():
         print(f"{name:35s} relative error = {err:.4f}")

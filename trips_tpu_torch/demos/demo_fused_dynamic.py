@@ -41,6 +41,40 @@ class Killed(Exception):
     pass
 
 
+def solves(op, bj, Ltv, dims, n_iter):
+    """The demo's two fused solves: {name: solve}, each solve a function
+    of no arguments returning (x, lams), on ``bj``'s device and dtype."""
+    return {f"fused dynamic MMGKS ({mode})": lambda mode=mode: fused_mmgks(
+        op, bj, Ltv if mode == "isoTV" else None, pnorm=2.0, qnorm=1.0,
+        projection_dim=3, n_iter=n_iter, regparam_mode="gcv",
+        weight_mode=mode, prob_dims=dims, device=bj.device)[:2]
+        for mode in ("isoTV", "GS")}
+
+
+def kill_and_resume(op, bj, Ltv, dims, n_iter, path):
+    """The checkpointed isoTV loop in chunks of 3: a whole run, a run
+    killed at iteration 6 with its state saved to ``path`` after each
+    chunk, and the run resumed from ``path``: -> (the whole run's x, the
+    resumed run's x)."""
+    kw = dict(pnorm=2.0, qnorm=1.0, projection_dim=3, n_iter=n_iter,
+              regparam_mode="gcv", weight_mode="isoTV", prob_dims=dims,
+              chunk=3, device=bj.device)
+    x_ref, _, _ = fused_mmgks_checkpointed(op, bj, Ltv, **kw)
+
+    def cb(it, **state):
+        save_state(path, state)
+        if it >= 6:
+            raise Killed
+
+    try:
+        fused_mmgks_checkpointed(op, bj, Ltv, callback=cb, **kw)
+    except Killed:
+        print(f"killed at iteration 6; checkpoint at {path}")
+    x_res, _, _ = fused_mmgks_checkpointed(op, bj, Ltv, resume_state=path,
+                                           **kw)
+    return x_ref, x_res
+
+
 def main(argv=None):
     """Run the demo and print its lines; returns {name: relError} and
     whether the resumed run equals the uninterrupted one (it asserts so)."""
@@ -62,35 +96,15 @@ def main(argv=None):
     Ltv = CenteredSpaceTimeDerivative(nx, ny, nt, device=dev)
     dims = (nx, ny, nt)
     results = {}
-
-    for mode in ("isoTV", "GS"):
-        x, lams, _ = fused_mmgks(op, bj, Ltv if mode == "isoTV" else None,
-                                 pnorm=2.0, qnorm=1.0, projection_dim=3,
-                                 n_iter=args.n_iter, regparam_mode="gcv",
-                                 weight_mode=mode, prob_dims=dims,
-                                 device=dev)
-        results[f"fused dynamic MMGKS ({mode})"] = relerr(x, x_true)
-        print(f"fused dynamic MMGKS ({mode}):  rel_err "
-              f"{relerr(x, x_true):.4f}  lam_last {float(lams[-1]):.3e}")
+    for name, solve in solves(op, bj, Ltv, dims, args.n_iter).items():
+        x, lams = solve()
+        results[name] = relerr(x, x_true)
+        print(f"{name}:  rel_err {relerr(x, x_true):.4f}  lam_last "
+              f"{float(lams[-1]):.3e}")
 
     # checkpoint/resume: kill after the second chunk, resume from disk
     path = os.path.join(tempfile.mkdtemp(), "dyn_ckpt.npz")
-    kw = dict(pnorm=2.0, qnorm=1.0, projection_dim=3, n_iter=args.n_iter,
-              regparam_mode="gcv", weight_mode="isoTV", prob_dims=dims,
-              chunk=3, device=dev)
-    x_ref, _, _ = fused_mmgks_checkpointed(op, bj, Ltv, **kw)
-
-    def cb(it, **state):
-        save_state(path, state)
-        if it >= 6:
-            raise Killed
-
-    try:
-        fused_mmgks_checkpointed(op, bj, Ltv, callback=cb, **kw)
-    except Killed:
-        print(f"killed at iteration 6; checkpoint at {path}")
-    x_res, _, _ = fused_mmgks_checkpointed(op, bj, Ltv, resume_state=path,
-                                           **kw)
+    x_ref, x_res = kill_and_resume(op, bj, Ltv, dims, args.n_iter, path)
     same = torch.equal(x_res, x_ref)
     results["resumed"] = relerr(x_res, x_true)
     print(f"resumed run == uninterrupted run bit-for-bit: {same}  "

@@ -31,12 +31,12 @@ def relerr(x, xt):
     return np.linalg.norm(x - xt) / np.linalg.norm(xt)
 
 
-def build_deblur1d(n, device):
+def build_deblur1d(n, device, dtype=torch.float32):
     from ..operators import FirstDerivative1D
     from ..problems import Deblurring1D
 
     np.random.seed(0)
-    prob = Deblurring1D(device=device, dtype=torch.float32)
+    prob = Deblurring1D(device=device, dtype=dtype)
     A = prob.forward_Op_1D(parameter=10.0, nx=n)
     x_true = prob.gen_xtrue(n, "curve0")
     b, delta = prob.add_noise(prob.gen_data(x_true), "Gaussian", 0.02)
@@ -44,11 +44,11 @@ def build_deblur1d(n, device):
             x_true, float(delta))
 
 
-def build_tomo(nx, views, device):
-    from ..operators import FirstDerivative2D
+def tomo_data(nx, views):
+    """The tomo configuration's host data after ``np.random.seed(0)``:
+    (A float32 CSR, b float32, x_true float32, delta)."""
     from ..problems.phantoms import tectonic
     from ..problems.projector import fan_beam_matrix
-    from ..sparse import BucketedBandedProjector
 
     np.random.seed(0)
     A = fan_beam_matrix(nx, views=views).astype(np.float32)
@@ -57,18 +57,55 @@ def build_tomo(nx, views, device):
     e = np.random.randn(b_true.size)
     sig = 0.01 * np.linalg.norm(b_true) / np.linalg.norm(e)
     b = (b_true + sig * e).astype(np.float32)
+    return A, b, x_true, float(np.linalg.norm(sig * e))
+
+
+def build_tomo(nx, views, device):
+    from ..operators import FirstDerivative2D
+    from ..sparse import BucketedBandedProjector
+
+    A, b, x_true, delta = tomo_data(nx, views)
     # the Ta-bucketed banded pack of the exact Siddon matrix, bfloat16
     op = BucketedBandedProjector.from_scipy_fan(A, nx, views, n_groups=32,
                                                 n_buckets=3,
                                                 dtype=torch.bfloat16,
                                                 device=device)
-    return (op, FirstDerivative2D(nx, nx, device=op.device), b, x_true,
-            float(np.linalg.norm(sig * e)))
+    return op, FirstDerivative2D(nx, nx, device=op.device), b, x_true, delta
 
 
 def _sync(device):
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def solves(A, L, bj, delta, n_iter):
+    """The demo's solves, in its order: {name: solve}, each solve a
+    function of no arguments returning (x, lams) (``cgls``,
+    ``cgls_normal``: (x, iterations)), on ``bj``'s device and dtype."""
+    from ..krylov import cgls, cgls_normal
+    from ..solvers.fused import fused_gks, fused_hybrid_lsqr, fused_mmgks
+
+    dev = bj.device
+    runs = {}
+    for mode in ("gcv", "dp", "l_curve"):
+        runs[f"fused_gks[{mode}]"] = lambda mode=mode: fused_gks(
+            A, bj, L, projection_dim=3, n_iter=n_iter, regparam_mode=mode,
+            delta=delta, device=dev)[:2]
+    runs["fused_mmgks[gcv]"] = lambda: fused_mmgks(
+        A, bj, L, pnorm=2.0, qnorm=1.0, projection_dim=3, n_iter=n_iter,
+        regparam_mode="gcv", device=dev)[:2]
+    # modified-GCV stabilizes the deep hybrid factorization (DP at a fixed
+    # large n_iter keeps the semiconvergent last iterate, faithfully to the
+    # reference; pair dp with dp_stop via solvers.Hybrid_LSQR for that use)
+    runs["fused_hyb_lsqr[gcv]"] = lambda: fused_hybrid_lsqr(
+        A, bj, n_iter=max(n_iter, 20), regparam_mode="gcv", device=dev)
+    # CG on the normal equations with the fused A^T A kernel (K1): the
+    # stored band streams from memory once per iteration instead of once
+    # per projection
+    x0 = torch.zeros(A.shape[1], dtype=bj.dtype, device=dev)
+    for name, fn in (("cgls", cgls), ("cgls_normal", cgls_normal)):
+        runs[name] = lambda fn=fn: fn(A, bj, x0, max(n_iter, 20), 0.0)
+    return runs
 
 
 def main(argv=None):
@@ -83,9 +120,6 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    from ..krylov import cgls, cgls_normal
-    from ..solvers.fused import fused_gks, fused_hybrid_lsqr, fused_mmgks
-
     if args.config == "deblur1d":
         A, L, b, x_true, delta = build_deblur1d(args.n, args.device)
     else:
@@ -93,56 +127,30 @@ def main(argv=None):
     dev = A.device
     bj = torch.tensor(b, dtype=torch.float32, device=dev)
     results = {}
-
-    for mode in ("gcv", "dp", "l_curve"):
-        # the first solve, then the same again timed (JAX: its compile,
-        # then the run of the compiled program)
+    for name, solve in solves(A, L, bj, delta, args.iters).items():
+        kind = name.split("[")[0]
+        if kind == "fused_gks" or kind.startswith("cgls"):
+            # the first solve, then the same again timed (JAX: its
+            # compile, then the run of the compiled program)
+            t0 = time.perf_counter()
+            solve()
+            _sync(dev)
+            t_first = time.perf_counter() - t0
         t0 = time.perf_counter()
-        x, lams, _ = fused_gks(A, bj, L, projection_dim=3,
-                               n_iter=args.iters, regparam_mode=mode,
-                               delta=delta, device=dev)
-        _sync(dev)
-        t_first = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        x, lams, _ = fused_gks(A, bj, L, projection_dim=3,
-                               n_iter=args.iters, regparam_mode=mode,
-                               delta=delta, device=dev)
+        x, lams = solve()
         float(torch.linalg.norm(x))
         t_run = time.perf_counter() - t0
-        results[f"fused_gks[{mode}]"] = relerr(x, x_true)
-        print(f"fused_gks[{mode:8s}]  rel_err={relerr(x, x_true):.4f}  "
-              f"lam={float(lams[-1]):.3e}  first={t_first:.1f}s  "
-              f"run={t_run * 1e3:.0f}ms ({args.iters} iters, on the device)")
-
-    x, lams, _ = fused_mmgks(A, bj, L, pnorm=2.0, qnorm=1.0,
-                             projection_dim=3, n_iter=args.iters,
-                             regparam_mode="gcv", device=dev)
-    results["fused_mmgks[gcv]"] = relerr(x, x_true)
-    print(f"fused_mmgks[gcv]    rel_err={relerr(x, x_true):.4f}  "
-          f"lam={float(lams[-1]):.3e}")
-
-    # modified-GCV stabilizes the deep hybrid factorization (DP at a fixed
-    # large n_iter keeps the semiconvergent last iterate, faithfully to the
-    # reference; pair dp with dp_stop via solvers.Hybrid_LSQR for that use)
-    x, lams = fused_hybrid_lsqr(A, bj, n_iter=max(args.iters, 20),
-                                regparam_mode="gcv", device=dev)
-    results["fused_hyb_lsqr[gcv]"] = relerr(x, x_true)
-    print(f"fused_hyb_lsqr[gcv] rel_err={relerr(x, x_true):.4f}  "
-          f"lam={float(lams[-1]):.3e}")
-
-    # CG on the normal equations with the fused A^T A kernel (K1): the
-    # stored band streams from memory once per iteration instead of once
-    # per projection
-    x0 = torch.zeros(A.shape[1], dtype=torch.float32, device=dev)
-    for name, fn in (("cgls", cgls), ("cgls_normal", cgls_normal)):
-        xx, _ = fn(A, bj, x0, max(args.iters, 20), 0.0)
-        float(torch.linalg.norm(xx))
-        t0 = time.perf_counter()
-        xx, _ = fn(A, bj, x0, max(args.iters, 20), 0.0)
-        float(torch.linalg.norm(xx))
-        results[name] = relerr(xx, x_true)
-        print(f"{name:19s} rel_err={relerr(xx, x_true):.4f}  "
-              f"run={1e3 * (time.perf_counter() - t0):.0f}ms")
+        results[name] = err = relerr(x, x_true)
+        if kind == "fused_gks":
+            print(f"fused_gks[{name[10:-1]:8s}]  rel_err={err:.4f}  "
+                  f"lam={float(lams[-1]):.3e}  first={t_first:.1f}s  "
+                  f"run={t_run * 1e3:.0f}ms ({args.iters} iters, on the "
+                  f"device)")
+        elif kind.startswith("cgls"):
+            print(f"{name:19s} rel_err={err:.4f}  run={1e3 * t_run:.0f}ms")
+        else:
+            print(f"{name:19s} rel_err={err:.4f}  "
+                  f"lam={float(lams[-1]):.3e}")
     return results
 
 

@@ -24,6 +24,44 @@ def relerr(x, xt):
     return np.linalg.norm(x - xt) / np.linalg.norm(xt)
 
 
+def problem(n, views, phantom, noise, device):
+    """The demo's inputs after ``np.random.seed(0)``: (OP, b, delta,
+    x_true, A) with ``OP`` on ``device`` (float32), ``b`` the noisy data
+    (NumPy float64) and ``A`` the host matrix."""
+    np.random.seed(0)
+    tomo = Tomography(CommitCrime=False, device=device)
+    x_true, nx, ny = tomo.gen_true(phantom, nx=n, ny=n, phantom_seed=0)
+    OP, b, p, q, A = tomo.gen_data(x_true, nx, ny, views)
+    b_noisy, delta = tomo.add_noise(b, "Gaussian", noise)
+    return OP, b_noisy.reshape(-1), float(delta), x_true, A
+
+
+def solves(OP, bv, A, b, delta, n, n_iter, dtype, x_true=None):
+    """The demo's solves, in its order: {name: solve}, each solve a
+    function of no arguments returning (x, its second result); a name with
+    ``{}`` takes that result (TSVD's k). ``bv`` is the data as a tensor of
+    ``OP``'s dtype, ``b`` the same on the host for the SVD; GKS records
+    its relError history against ``x_true``."""
+    dev = bv.device
+    L = FirstDerivative2D(n, n, device=dev)
+    runs = {}
+    if n <= 64:
+        # the SVD on the host in float64, x in ``dtype`` (the JAX demo's
+        # on its float32 device)
+        runs["TSVD (dp, k={})"] = lambda: tSVD_sol(
+            A.toarray(), b, regparam="dp", delta=delta, device=dev,
+            dtype=dtype)
+    runs["GKS (dp)"] = lambda: GKS(OP, bv, L, projection_dim=3,
+                                   n_iter=n_iter, regparam="dp", delta=delta,
+                                   x_true=x_true)
+    runs["Hybrid LSQR (dp)"] = lambda: Hybrid_LSQR(
+        OP, bv, n_iter=n_iter, regparam="dp", delta=delta, reorth=True)
+    runs["MMGKS p2 q1 (dp)"] = lambda: MMGKS(
+        OP, bv, L, pnorm=2, qnorm=1, projection_dim=3, n_iter=n_iter,
+        regparam="dp", delta=delta)
+    return runs
+
+
 def main(argv=None):
     """Run the demo and print its lines; returns {name: relError}."""
     ap = argparse.ArgumentParser()
@@ -35,40 +73,18 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    np.random.seed(0)
     if args.large:
         n, views, phantom_name, noise = 256, 60, "grains", 0.001
     else:
         n, views, phantom_name, noise = args.n, args.views, "tectonic", 0.01
-
-    tomo = Tomography(CommitCrime=False, device=args.device)
-    x_true, nx, ny = tomo.gen_true(phantom_name, nx=n, ny=n, phantom_seed=0)
-    OP, b, p, q, A = tomo.gen_data(x_true, nx, ny, views)
-    b_noisy, delta = tomo.add_noise(b, "Gaussian", noise)
-    delta = float(delta)
-    bv = torch.tensor(b_noisy.reshape(-1), dtype=torch.float32,
-                      device=OP.device)
-
+    OP, b, delta, x_true, A = problem(n, views, phantom_name, noise,
+                                      args.device)
+    bv = torch.tensor(b, dtype=torch.float32, device=OP.device)
     results = {}
-    if n <= 64:
-        # the SVD on the host in float64, x in float32 (as the JAX demo's
-        # on its float32 device)
-        x, k = tSVD_sol(A.toarray(), b_noisy.reshape(-1), regparam="dp",
-                        delta=delta, device=args.device, dtype=torch.float32)
-        results[f"TSVD (dp, k={k})"] = relerr(x, x_true)
-
-    L = FirstDerivative2D(nx, ny, device=OP.device)
-    x, info = GKS(OP, bv, L, projection_dim=3, n_iter=args.iters,
-                  regparam="dp", delta=delta, x_true=x_true)
-    results["GKS (dp)"] = relerr(x, x_true)
-
-    x, _ = Hybrid_LSQR(OP, bv, n_iter=args.iters, regparam="dp", delta=delta,
-                       reorth=True)
-    results["Hybrid LSQR (dp)"] = relerr(x, x_true)
-
-    x, _ = MMGKS(OP, bv, L, pnorm=2, qnorm=1, projection_dim=3,
-                 n_iter=args.iters, regparam="dp", delta=delta)
-    results["MMGKS p2 q1 (dp)"] = relerr(x, x_true)
+    for name, solve in solves(OP, bv, A, b, delta, n, args.iters,
+                              torch.float32, x_true).items():
+        x, info = solve()
+        results[name.format(info)] = relerr(x, x_true)
 
     for name, err in results.items():
         print(f"{name:30s} relative error = {err:.4f}")

@@ -133,13 +133,17 @@ class StreamedDynamicBandedOperator(LinearOperator):
         # So each twin's arguments are made here once (``bk.prepare``: the
         # bucket checks and ctypes arguments, off the apply's path) and
         # handed to the wrappers, which then skip their cache.
-        self._twins = [[self._twin(s, t, layouts[t], aidx[t])
+        # K1's and K3's fixed-point bounds: the slots are filled per apply,
+        # so each frame's come from its host stacks, once for both slots
+        bounds = [bk.pack_bounds(op._bks, op.n_groups)
+                  for op in self.frame_ops]
+        self._twins = [[self._twin(s, t, layouts[t], aidx[t], bounds[t])
                         for t in range(self.nt)] for s in range(2)]
         self._side = torch.cuda.Stream(dev)
         self._ready = [torch.cuda.Event() for _ in range(2)]
         self._free = [torch.cuda.Event() for _ in range(2)]
 
-    def _twin(self, s, t, layout, aidx):
+    def _twin(self, s, t, layout, aidx, bounds):
         op = self.frame_ops[t]
         slot = self._slots[s]
         views = iter([slot[o:o + nbytes].view(h.dtype).view(h.shape)
@@ -152,14 +156,10 @@ class StreamedDynamicBandedOperator(LinearOperator):
         for attr, name, ids in (("_fwd", "banded_fwd", aidx),
                                 ("_adj", "banded_adj", aidx),
                                 ("_ata", "banded_ata", None)):
-            # the slot is filled per apply: K1's and K3's fixed-point
-            # bounds come from the host frame's own stacks
-            bound = (None if name == "banded_fwd"
-                     else bk.pack_bound(name, op._bks, op.n_groups))
             setattr(tw, attr, functools.partial(
                 getattr(bk, name + "_buckets"),
                 prepared=bk.prepare(name, slot, bks, ids, op.n_groups,
-                                    bound)))
+                                    bounds.get(name))))
         return tw
 
     def _upload(self, t, s):

@@ -38,9 +38,8 @@ K1 and K3 add their back-projection in fixed point on the card (the
 header of ``csrc/banded.cu``): each term scaled by ``2^e`` and rounded to
 int64, the sum integer, so equal inputs give equal bits from run to run
 and the order of the atomics does not matter. ``e`` comes, per frame,
-from ``pack_bound`` (made once per pack, from the stored weights) times
-max|input|. ``banded_adj_buckets_fixed`` and ``banded_ata_buckets_fixed``
-emulate that sum in PyTorch (int64 ``index_add_``).
+from ``pack_bounds`` (made once per pack, from the stored weights) times
+max|input|.
 
 They replace ``_fwd_call``, ``_adj_call`` and ``_ata_call`` of
 ``trips_tpu/sparse/pallas_banded_kernel.py``, and their ``jax.vmap`` over
@@ -206,20 +205,6 @@ BOUND_BITS = 20
 _CHUNK = 1 << 22  # stored weights per step of the bound's sums
 
 
-def fixed_exponent(m):
-    """The fixed-point scale of ``m = bound * max|input|`` (float64
-    tensor, one per frame), as ``csrc/banded.cu`` ``fixed_scale`` takes
-    it: -> (e, state) int64 tensors, state 1 where the terms add at scale
-    ``2^e`` (``e = 61 - k`` for ``m < 2^k``: every partial sum below
-    2^62), 0 where ``m == 0`` (a zero image, e = 0), -1 where ``m`` is not
-    finite (an image of NaN, e = 0)."""
-    m = torch.as_tensor(m, dtype=torch.float64)
-    finite, zero = torch.isfinite(m), m == 0
-    k = torch.frexp(torch.where(finite & ~zero, m, 1.0)).exponent.long()
-    state = torch.where(finite, torch.where(zero, 0, 1), -1).long()
-    return torch.where(state > 0, 61 - k, 0), state
-
-
 def _frame_units(buckets):
     """(frames F of the pack: its frame axis or 1, [(frame or None for
     every frame, W, S, Pm, scales, cols)]): a bucket with a frame axis
@@ -274,105 +259,19 @@ def abs_sums(buckets, n_groups):
     return col.amax(dim=1) / scale, row / scale
 
 
-def pack_bound(name, buckets, n_groups):
-    """Frame f's bound on ``|out| / max|input|`` for kernel ``name``:
-    ``banded_adj`` (K3) the largest column abs-sum, ``banded_ata`` (K1)
-    that times the largest row abs-sum (stage 1's ``|y[d]|`` is at most
-    the row's abs-sum times max|X|). float64 ``(F,)`` on the buckets'
-    device."""
+def pack_bounds(buckets, n_groups):
+    """Frame f's bound on ``|out| / max|input|`` per kernel, from one pass
+    over the pack (``abs_sums``): ``{"banded_adj": the largest column
+    abs-sum (K3), "banded_ata": that times the largest row abs-sum (K1:
+    stage 1's ``|y[d]|`` is at most the row's abs-sum times max|X|)}``,
+    float64 ``(F,)`` on the buckets' device."""
     col, row = abs_sums(buckets, n_groups)
-    return col if name == "banded_adj" else col * row
-
-
-def _fixed_sum(terms, index, size, e, state):
-    """The kernels' fixed-point sum of float64 ``terms`` into ``size``
-    entries at ``index`` for one frame: each term times ``2^e`` rounded
-    to int64 (half to even, as ``__double2ll_rn``), summed in int64, then
-    ``float(acc 2^-e)``; NaN where ``state < 0``."""
-    acc = torch.zeros(size, dtype=torch.int64, device=terms.device)
-    acc.index_add_(0, index, torch.round(terms * 2.0 ** int(e)).long())
-    out = (acc.double() * 2.0 ** -int(e)).float()
-    if state < 0:
-        out.fill_(float("nan"))
-    return out
-
-
-def _fixed_frame(parts, n, n_groups, e, state):
-    """One frame's back-projection into an ``(n, n)`` image in fixed point:
-    ``parts`` holds ``(W, S, Pm, scales, cols, y)`` per bucket, ``y (na,
-    p_pad)`` what each angle's detectors project back; every term ``w *
-    y[d]`` is exact in float64 (``_fixed_sum``)."""
-    lines = torch.arange(n, device=parts[0][0].device)[None, None, :, None]
-    terms, index = [], []
-    for W, S, Pm, sc, cols, y in parts:
-        c = _columns(S, Pm, n_groups, W.shape[1], n)
-        terms.append((dequant_slab(W, sc).double()
-                      * y.double()[:, None, None, :]).reshape(-1))
-        index.append((c * n + lines if cols else lines * n + c).reshape(-1))
-    return _fixed_sum(torch.cat(terms), torch.cat(index), n * n, e,
-                      state).view(n, n)
+    return {"banded_adj": col, "banded_ata": col * row}
 
 
 def _max_abs(t, dims):
     """max|t| per frame (frames in front of ``dims`` dimensions)."""
     return t.abs().amax(dim=tuple(range(-dims, 0))).reshape(-1)
-
-
-def _scales(name, inp, buckets, n_groups, bound):
-    """(e, state) per frame of ``inp`` (frames in front of two
-    dimensions) for kernel ``name``: ``bound`` (``pack_bound`` unless
-    given) times max|inp[f]|."""
-    bound = (pack_bound(name, buckets, n_groups) if bound is None
-             else bound).to(inp.device)
-    return fixed_exponent(bound.expand(inp.shape[0])
-                          * _max_abs(inp, 2).double())
-
-
-def banded_adj_buckets_fixed(Y, buckets, aidx, n_groups, bound=None):
-    """K3's arithmetic on the card, in PyTorch: ``banded_adj_buckets``
-    with every term ``w * y[d]`` (exact in float64) added in fixed point
-    at frame f's scale from ``bound`` (``pack_bound("banded_adj", ...)``
-    unless given) and max|Y[f]|. Equal to the kernel's output bit for
-    bit."""
-    n = buckets[0][0].shape[-2]
-    Y, framed = _frames(Y, 2)
-    rows, p = Y.shape[1:]
-    e, state = _scales("banded_adj", Y, buckets, n_groups, bound)
-    out = torch.zeros((Y.shape[0], n, n), dtype=torch.float32,
-                      device=Y.device)
-    for f in range(Y.shape[0]):
-        parts = []
-        for bucket, ids in zip(buckets, aidx):
-            (W, S, Pm, sc, cols), ids = _in_frame(bucket, ids, f)
-            keep = (ids >= 0) & (ids < rows)
-            Yg = torch.zeros((W.shape[0], W.shape[3]), dtype=torch.float64,
-                             device=Y.device)
-            Yg[keep, :p] = Y[f].double()[ids[keep].long()]
-            parts.append((W, S, Pm, sc, cols, Yg))
-        out[f] = _fixed_frame(parts, n, n_groups, e[f], state[f])
-    return out if framed else out[0]
-
-
-def banded_ata_buckets_fixed(X, XT, buckets, n_groups, bound=None):
-    """K1's stage 2 on the card, in PyTorch: each bucket's float32 ``y =
-    banded_fwd_ref`` (the plain version's order of sums; the kernel's
-    order differs, so its y may differ in the last bits unless those sums
-    are exact), back-projected as ``banded_adj_buckets_fixed`` does at
-    frame f's scale from ``bound`` (``pack_bound("banded_ata", ...)``
-    unless given) and max|X[f]|."""
-    X, framed = _frames(X, 2)
-    XT = None if XT is None else _frames(XT, 2)[0]
-    e, state = _scales("banded_ata", X, buckets, n_groups, bound)
-    out = torch.zeros(X.shape, dtype=torch.float32, device=X.device)
-    for f in range(X.shape[0]):
-        parts = []
-        for bucket in buckets:
-            (W, S, Pm, sc, cols), _ = _in_frame(bucket, None, f)
-            y = banded_fwd_ref(XT[f] if cols else X[f], W, S, Pm, n_groups,
-                               sc)
-            parts.append((W, S, Pm, sc, cols, y))
-        out[f] = _fixed_frame(parts, X.shape[-1], n_groups, e[f], state[f])
-    return out if framed else out[0]
 
 
 # ---- plans ------------------------------------------------------------------
@@ -494,17 +393,35 @@ def _check_buckets(inp, buckets, aidx, n_groups):
 
 
 # launch arguments of buckets already checked, by (kernel, id of the bucket
-# and angle id sequences, their cols flags, n_groups, device): weak
-# references to their tensors and the arguments; an entry stands only while
+# and angle id sequences, their cols flags, n_groups, device), and the
+# packs' fixed-point bounds, by (id of the bucket sequence, n_groups): weak
+# references to their tensors and the value; an entry stands only while
 # the sequences hold the very tensors it was made for
 _PREPARED = {}
+_BOUNDS = {}
 
 
 def clear_plans():
-    """Forget the memoized plans and launch arguments (after ``PLANS``
-    changed)."""
+    """Forget the memoized plans, launch arguments and bounds (after
+    ``PLANS`` changed)."""
     launch_plan.cache_clear()
     _PREPARED.clear()
+    _BOUNDS.clear()
+
+
+def _kept(cache, key, tensors, make):
+    """``cache``'s value for ``key`` if it was made for these very
+    ``tensors``, else ``make()``, kept (at most 64 entries, the oldest
+    dropped first)."""
+    hit = cache.get(key)
+    if hit is not None and len(hit[0]) == len(tensors) and all(
+            r() is t for r, t in zip(hit[0], tensors)):
+        return hit[1]
+    out = make()
+    if len(cache) >= 64:
+        del cache[next(iter(cache))]
+    cache[key] = ([weakref.ref(t) for t in tensors], out)
+    return out
 
 
 def prepare(name, inp, buckets, aidx, n_groups, bound=None):
@@ -512,7 +429,7 @@ def prepare(name, inp, buckets, aidx, n_groups, bound=None):
     arguments for kernel ``name`` (``banded_fwd``, ``banded_adj`` or
     ``banded_ata``; ``aidx`` None for K1) on ``inp``'s device: (n, p_pad,
     the buckets' frame count or None, [(nb, ctypes arrays, plan)], the
-    frames' fixed-point bounds (K1, K3: ``pack_bound`` of the buckets, a
+    frames' fixed-point bounds (K1, K3: ``pack_bounds`` of the buckets, a
     float64 tensor on the device, unless ``bound`` gives it, as a caller
     whose buckets are filled later must; K2: None)), one entry per launch
     of at most the library's ``trips_banded_max_buckets``. The arguments
@@ -523,7 +440,7 @@ def prepare(name, inp, buckets, aidx, n_groups, bound=None):
 
     n, p_pad, nf = _check_buckets(inp, buckets, aidx, n_groups)
     if name != "banded_fwd":
-        bound = (pack_bound(name, buckets, n_groups) if bound is None
+        bound = (pack_bounds(buckets, n_groups)[name] if bound is None
                  else torch.as_tensor(bound))
         bound = bound.to(inp.device, torch.float64).reshape(-1).contiguous()
         if bound.numel() not in (1, nf or 1):
@@ -552,20 +469,20 @@ def prepare(name, inp, buckets, aidx, n_groups, bound=None):
 def _prepare(name, inp, buckets, aidx, n_groups):
     """``prepare``, kept: the operator hands over the same buckets every
     apply, so their check and arguments are kept, without keeping the
-    tensors alive, and reused while the same tensors come again."""
-    tensors = [t for b in buckets for t in b[:4] if t is not None]
-    tensors += list(aidx) if aidx is not None else []
+    tensors alive, and reused while the same tensors come again. K1 and K3
+    of one pack share its bounds (one ``abs_sums`` pass)."""
+    stacks = [t for b in buckets for t in b[:4] if t is not None]
+    tensors = stacks + (list(aidx) if aidx is not None else [])
     key = (name, id(buckets), id(aidx), tuple(bool(b[4]) for b in buckets),
            n_groups, inp.device)
-    hit = _PREPARED.get(key)
-    if hit is not None and len(hit[0]) == len(tensors) and all(
-            r() is t for r, t in zip(hit[0], tensors)):
-        return hit[1]
-    out = prepare(name, inp, buckets, aidx, n_groups)
-    if len(_PREPARED) >= 64:
-        del _PREPARED[next(iter(_PREPARED))]
-    _PREPARED[key] = ([weakref.ref(t) for t in tensors], out)
-    return out
+
+    def make():
+        bound = None if name == "banded_fwd" else _kept(
+            _BOUNDS, (id(buckets), n_groups), stacks,
+            lambda: pack_bounds(buckets, n_groups))[name]
+        return prepare(name, inp, buckets, aidx, n_groups, bound)
+
+    return _kept(_PREPARED, key, tensors, make)
 
 
 def _launch(name, inp, inp_t, out, kind, launches, p, rows, n, p_pad,
@@ -583,7 +500,9 @@ def _launch(name, inp, inp_t, out, kind, launches, p, rows, n, p_pad,
     lib = _build.load()
     fixed = (None, None, None, 0)
     if bound is not None:
-        acc = torch.zeros(out.shape, dtype=torch.int64, device=out.device)
+        # the nf images, then one overflow flag per frame (csrc/banded.cu)
+        acc = torch.zeros(out.numel() + nf, dtype=torch.int64,
+                          device=out.device)
         amax = _max_abs(inp, 2)
         fixed = (acc.data_ptr(), amax.data_ptr(), bound.data_ptr(),
                  int(bound.numel() > 1))
@@ -660,8 +579,8 @@ def banded_adj_buckets(Y, buckets, aidx, n_groups, prepared=None):
     ``aidx`` as for ``banded_fwd_buckets``; bucket k's angle a reads row
     ``aidx[k][a]`` (zero beyond ``p``), a bucket with ``cols`` adds its
     image transposed. -> ``(n, n)`` float32 (``(nf, n, n)``), the sum of
-    ``banded_adj`` over the buckets, added in fixed point on the card
-    (``banded_adj_buckets_fixed``). ``prepared`` as for
+    ``banded_adj`` over the buckets, added in fixed point on the card.
+    ``prepared`` as for
     ``banded_fwd_buckets``."""
     if Y.device.type == "cpu":
         return banded_adj_buckets_ref(Y, buckets, aidx, n_groups)
@@ -684,7 +603,7 @@ def banded_ata_buckets(X, XT, buckets, n_groups, prepared=None):
     transposed image, contiguous) and its image is transposed before the
     sum. ``X`` is ``(n, n)`` or frames ``(nf, n, n)``. -> float32 of
     ``X``'s shape, the sum of ``banded_ata`` over the buckets, stage 2
-    added in fixed point on the card (``banded_ata_buckets_fixed``).
+    added in fixed point on the card.
     ``prepared`` as for ``banded_fwd_buckets``."""
     if X.device.type == "cpu":
         return banded_ata_buckets_ref(X, XT, buckets, n_groups)
