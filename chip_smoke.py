@@ -7,8 +7,13 @@ card; without one it exits non-zero before printing any result.
 Two paths on the same tomo256x60 problem: the bucketed banded operator
 (kernels K1-K3, ``csrc/banded.cu``, each one launch over all buckets of
 an apply) and the shear-rotate fan projector
-``ShearFanProjector`` (K4-K6, ``csrc/shear.cu``). Phases, each failing the
-run by raising:
+``ShearFanProjector`` (K4-K6, ``csrc/shear.cu``). On the card the port's
+loops (CGLS, LSQR, Brent's search, the DP Newton) run as replays of one
+captured CUDA graph each (``trips_tpu_torch/core/loop.py``); phases 3, 4,
+5, 7, 8, 9 and 12b also run them stepped eagerly (``core.loop.eager``)
+and fail unless x, k and every lambda are the same to the bit and each
+kernel launched as often (a replay counts its step's launches). Phases,
+each failing the run by raising:
 
 0. the card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
 1. build K1-K6 with nvcc, one process per source;
@@ -28,23 +33,28 @@ run by raising:
    same inputs, with launch counts showing the kernels ran, and the
    launches of one ``matvec`` and one ``rmatvec``; the banded float32
    ``cgls_normal`` run twice, its relError histories and final iterates
-   bitwise equal;
+   bitwise equal; each loop (banded ``cgls`` and ``cgls_normal`` in three
+   storage classes, shear ``cgls`` and K6 ``cgls_normal`` for both G types)
+   replayed against the eager loop, and the launches of one replay;
 4. times of each kernel against its plain version, the least time the
    card could take for the same work (``bound_ms``) and the library's
    call for the same function (device time from ``torch.profiler``): for
    K1-K3 one apply of the pack's matrix as a float32 CSR tensor
    (cuSPARSE), for K6 the product pair; applies and solvers (CUDA events
-   and synchronized host clocks); K4 and K5 at each tile shape of
+   and synchronized host clocks; each solver loop replayed, stepped
+   eagerly and on the plain versions, in turns); K4 and K5 at each tile shape of
    ``shear_kernels.TILES`` (K5 also in chunks of 2, 4 and 8 views), each held
    against its plain version; where ``_local/parent`` holds another
    checkout of the repository (``git archive``), its K3 and K1 (built from
    its ``csrc/``) in turns with these, per storage class (and in 7 per
    dynamic pack, in 12b on the gel pack), and its banded float32
    ``cgls`` and ``cgls_normal`` loops in turns with these;
-5. loop profiles of the solver paths that run K1-K6: device busy
-   time per iteration by kernel (``torch.profiler``) against the wall time
-   per iteration of the same solver in 4 (timed before any profiler
-   session, which leaves the host slower), and the device's idle share;
+5. loop profiles of the solver paths that run K1-K6, replayed and
+   stepped eagerly: device busy time per iteration by kernel
+   (``torch.profiler``, which records a replay's kernels one by one)
+   against the wall time per iteration of the same solver in 4 (timed
+   before any profiler session, which leaves the host slower), and the
+   device's idle share;
    the parent's loops beside the chunked ones;
 6. the tomography demo's regularized solvers (``demos/demo_tomography.py``
    :50-61, 30 iterations) on the float32 banded operator: GKS with
@@ -175,9 +185,10 @@ run by raising:
    device ms beside the ``CsrOperator``'s; [12f]
    ``bench.iters_to_tol.compare`` on the card beside JAX's rows; [12]'s
    seconds.
-13. the port's twins of the six runnable demos (``trips_tpu_torch.demos``)
+13. the port's twins of the runnable demos (``trips_tpu_torch.demos``)
    at full width through their ``main``, with the C++ matrix builder as a
-   user builds: ``demo_tomography --large`` (K2, K3),
+   user builds (``demo_your_data`` at its defaults, 64x64 'H' image, GKS
+   with GCV; no banded kernel): ``demo_tomography --large`` (K2, K3),
    ``demo_dynamic_ct --nx 128 --nt 33`` (its 12 views; K2, K3),
    ``demo_1d_deblurring`` and ``demo_2d_deblurring --large`` (no banded
    kernel), ``demo_fused_tpu --config deblur1d`` and ``--config tomo --nx
@@ -202,6 +213,7 @@ import re
 import subprocess
 import sys
 import time
+from functools import partial
 from pathlib import Path
 
 import numpy as np
@@ -420,6 +432,75 @@ def loop_profile(solver, op, b, x0):
     busy = device_ms(lambda: solver(op, b, x0, LOOP_ITERS, 0.0), 1,
                      by_kernel) / LOOP_ITERS
     return busy, {n: v / LOOP_ITERS for n, v in by_kernel.items()}
+
+
+def same_bits(a, b):
+    """Whether ``a`` and ``b`` (tensors, numbers, or tuples of them) hold
+    the same values to the bit."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.dtype == b.dtype
+                and a.shape == b.shape and torch.equal(a, b))
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(map(same_bits, a, b))
+    return a == b
+
+
+def graph_vs_eager(label, fn, probe=None):
+    """``fn()`` with the port's loops replayed as CUDA graphs (the card's
+    default), then stepped eagerly (``core.loop.eager``, the yardstick),
+    each timed between synchronizes: the outputs must be the same to the
+    bit and the K1-K6 launches the same, else the phase fails naming the
+    first step that differs (``probe(k)``: ``fn`` cut to k steps; for a
+    (x, lambdas) output the first lambda that differs). -> (the graph
+    run's output, its seconds, the eager run's seconds, its launches)."""
+    import torch
+
+    from trips_tpu_torch.core import loop
+    from trips_tpu_torch.operators import shear_kernels as sk
+    from trips_tpu_torch.sparse import banded_kernels as bk
+
+    runs = []
+    for ctx in (contextlib.nullcontext, loop.eager):
+        before = {**bk.launch_counts, **sk.launch_counts}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with ctx():
+            out = fn()
+        torch.cuda.synchronize()
+        now = {**bk.launch_counts, **sk.launch_counts}
+        runs.append((out, time.perf_counter() - t,
+                     {k: now[k] - before[k] for k in now}))
+    (g, tg, lg), (e, te, le) = runs
+    if not same_bits(g, e):
+        where = "at the end"
+        if probe is not None:
+            for k in range(1, 1000):
+                a = probe(k)
+                with loop.eager():
+                    b = probe(k)
+                if not same_bits(a, b):
+                    where = f"first at step {k}"
+                    break
+        elif isinstance(g, tuple) and len(g) == 2 and g[1].dim() == 1:
+            diff = (g[1] != e[1]).nonzero()
+            if len(diff):
+                where = (f"first at iteration {int(diff[0]) + 1}: lambda "
+                         f"{float(g[1][diff[0]])!r} against "
+                         f"{float(e[1][diff[0]])!r}")
+        check(False, f"{label}: the replayed loops differ from the eager "
+              f"ones, {where}")
+    check(lg == le, f"{label}: launches {lg} replayed, {le} eager")
+    return g, tg, te, lg
+
+
+def eagerly(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` with the port's loops stepped eagerly."""
+    from trips_tpu_torch.core import loop
+
+    with loop.eager():
+        return fn(*args, **kwargs)
 
 
 def bucket_args(op, stack, isc, X):
@@ -646,6 +727,9 @@ def plain_copy(op):
     p = copy.copy(op)
     p._fwd, p._adj = bk.banded_fwd_buckets_ref, bk.banded_adj_buckets_ref
     p._ata = bk.banded_ata_buckets_ref
+    # the plain versions read the host (boolean masks): their loops step
+    # eagerly
+    p.capturable = False
     return p
 
 
@@ -657,7 +741,7 @@ def dynamic_path(dev, card, gen):
     measures."""
     import torch
 
-    from trips_tpu_torch.core import BatchedBlockDiagOperator
+    from trips_tpu_torch.core import BatchedBlockDiagOperator, loop
     from trips_tpu_torch.krylov import cgls_normal
     from trips_tpu_torch.krylov.cgls import _cgn_chunk, _cgn_init
     from trips_tpu_torch.operators import (CenteredSpaceTimeDerivative,
@@ -853,20 +937,42 @@ def dynamic_path(dev, card, gen):
     check(d8 <= INT8_ATOL, f"dynamic int8 min relError gap {d8!r}")
     check(all(v > 0 for v in launches.values()),
           "a kernel never launched in the dynamic path")
-    for kind in ("float32", "int8"):  # walls of the loop without reads
+    # the loop replayed as a CUDA graph against the same loop stepped
+    # eagerly: x and k to the bit, launches equal; then the walls of both
+    for kind in ("float32", "bfloat16", "int8"):
         op = ops["bucketed " + kind]
-        cgls_normal(op, bv, x0, 2)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        cgls_normal(op, bv, x0, DYN_CGN_ITERS)
-        torch.cuda.synchronize()
         name = f"cgls_normal bucketed {kind}"
-        walls[name] = (time.perf_counter() - t) / DYN_CGN_ITERS * 1e3
-        iters[name] = DYN_CGN_ITERS
+        (_, k), _, _, got = graph_vs_eager(
+            f"dynamic {name}", lambda op=op: cgls_normal(op, bv, x0,
+                                                         DYN_CGN_ITERS),
+            lambda j, op=op: cgls_normal(op, bv, x0, j))
+        wall = {}
+        for how in ("graph", "eager", "eager", "graph"):
+            with (loop.eager() if how == "eager"
+                  else contextlib.nullcontext()):
+                cgls_normal(op, bv, x0, 2)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                cgls_normal(op, bv, x0, DYN_CGN_ITERS)
+                torch.cuda.synchronize()
+            wall.setdefault(how, []).append(
+                (time.perf_counter() - t) / DYN_CGN_ITERS * 1e3)
+        if kind == "bfloat16":
+            print(f"[7] {name}: replayed graph vs eager bitwise (k {k}, "
+                  f"launches {got}); wall {wall!r} ms/iter; card {card}")
+            continue
+        walls[name] = float(np.mean(wall["graph"]))
+        walls[name + " eager"] = float(np.mean(wall["eager"]))
+        iters[name] = iters[name + " eager"] = DYN_CGN_ITERS
         solves[name] = ((lambda o: lambda: cgls_normal(
             o, bv, x0, DYN_CGN_ITERS))(op), None, DYN_CGN_ITERS)
-        print(f"[7] {name}: wall {walls[name]!r} ms/iter "
-              f"({DYN_CGN_ITERS} iterations); card {card}")
+        solves[name + " eager"] = ((lambda o: lambda: eagerly(
+            cgls_normal, o, bv, x0, DYN_CGN_ITERS))(op), None,
+            DYN_CGN_ITERS)
+        print(f"[7] {name}: replayed graph vs eager bitwise (k {k}, "
+              f"launches {got}); wall graph {walls[name]!r}, eager "
+              f"{walls[name + ' eager']!r} ms/iter ({DYN_CGN_ITERS} "
+              f"iterations; runs {wall!r}); card {card}")
     return dict(A=A, ops=ops, launches=launches, max_abs=max_abs,
                 solves=solves, walls=walls, iters=iters, nt=nt, bv=bv,
                 x_true=x_true, dims=(nx, ny, nt), AA=AA, B=B, delta=delta,
@@ -1215,27 +1321,52 @@ def fused_path(dev, card, OP, bv, L, delta, x_true, dyn):
         if name not in FUSED_UNGATED:
             check(max(abs(e - ref) for e in errs) <= FUSED_GATE,
                   f"{name} final relErrors {errs!r}")
+        # the searches (and lsqr) stepped eagerly: x and every lambda the
+        # replayed graphs' to the bit, the launches the same
+        bk.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with loop.eager():
+            xe, lamse = solve()
+        torch.cuda.synchronize()
+        walls[name + " eager"] = (time.perf_counter() - t) / its * 1e3
+        diff = (lamse != lams).nonzero()
+        check(torch.equal(xe, x) and not len(diff),
+              f"{name}: the replayed searches differ from the eager ones"
+              + (f", first at iteration {int(diff[0]) + 1}: lambda "
+                 f"{float(lams[diff[0]])!r} against "
+                 f"{float(lamse[diff[0]])!r}" if len(diff) else ", in x"))
+        check(dict(bk.launch_counts) == got,
+              f"{name}: eager launches {dict(bk.launch_counts)} vs {got}")
+        print(f"[8] {name}: replayed graphs vs eager loops: x and the "
+              f"{lams.numel()} lambdas bitwise equal, launches equal; wall "
+              f"{walls[name]!r} / {walls[name + ' eager']!r} ms/iter; card "
+              f"{card}")
         if name == "lsqr damped":  # over its steps
-            syncs[name] = {k: v / its for k, v in
-                           count_syncs(solve).items()}
-            one_iter[name] = (solve, walls[name] * its, its)
+            for sfx, fn in (("", solve), (" eager", partial(eagerly, solve))):
+                syncs[name + sfx] = {k: v / its for k, v in
+                                     count_syncs(fn).items()}
+                one_iter[name + sfx] = (fn, walls[name + sfx] * its, its)
         elif one is not None:  # iteration SYNC_ITER: syncs, then its wall
             step = one()
-            syncs[name] = count_syncs(step)
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            step()
-            torch.cuda.synchronize()
-            one_iter[name] = (step, (time.perf_counter() - t) * 1e3, 1)
+            for sfx, fn in (("", step), (" eager", partial(eagerly, step))):
+                syncs[name + sfx] = count_syncs(fn)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                one_iter[name + sfx] = (fn, (time.perf_counter() - t) * 1e3,
+                                        1)
 
-    # the Brent chunk: one host read per usual search, as taken, against a
-    # read every 8 steps (fewer dropped steps, more reads), in turns on
-    # iteration SYNC_ITER of the GCV GKS
+    # the Brent chunk as taken against a read every 8 steps (fewer dropped
+    # steps, more reads) and every 72 (the eager loop's chunk until the
+    # searches were replayed), in turns on iteration SYNC_ITER of the GCV
+    # GKS
     regdev = sys.modules["trips_tpu_torch.regparam.device"]
     taken, step = regdev.BRENT_CHUNK, one_iter["fused GKS gcv"][0]
     chunk_walls = {}
     try:
-        for chunk in (taken, 8, 8, taken) * 2:
+        for chunk in (taken, 8, 72, 72, 8, taken) * 2:
             regdev.BRENT_CHUNK = chunk
             torch.cuda.synchronize()
             t = time.perf_counter()
@@ -1291,6 +1422,9 @@ def fused_path(dev, card, OP, bv, L, delta, x_true, dyn):
         resumed = killed_and_resumed(fn, os.path.join(tmp, "state.npz"))
         got = dict(bk.launch_counts)
         launches[name] = got
+        eager_run = eagerly(fn)
+        check(same_bits(eager_run, full[0]),
+              f"{name}: the replayed loops differ from the eager ones")
         # the scale of a fault: the same solve one iteration short
         short = fn(n=(FUSED_DYN_ITERS if name.startswith("fused")
                       else DYN_CGN_ITERS) - 1)[0]
@@ -1302,7 +1436,9 @@ def fused_path(dev, card, OP, bv, L, delta, x_true, dyn):
         print(f"[8] {name} ({kernels}), chunks of {FUSED_CHUNK}, killed "
               f"after the first and resumed from its file: x (and lambdas) "
               f"{gap!r} from an uninterrupted run, bitwise {same[1]}; two "
-              f"uninterrupted runs {spread!r} apart, bitwise {same[0]}; one "
+              f"uninterrupted runs {spread!r} apart, bitwise {same[0]}; an "
+              f"uninterrupted run with the loops stepped eagerly bitwise "
+              f"equal; one "
               f"iteration short {rel(short, full[0][0])!r}; relErrors "
               f"{errs!r}; launches of the four runs {got}; card {card}")
         check(all(r.shape == f.shape for r, f in zip(resumed, full[0])),
@@ -1684,12 +1820,13 @@ def deblur_path(dev, card, gen):
     walls = {}
     bk.reset_launch_counts()
     for name, (which, its, solve, one) in solves.items():
-        errs, pars, hist = [], [], None
+        errs, pars, hist, outs = [], [], None, []
         for run in range(2):
             torch.cuda.synchronize()
             t = time.perf_counter()
             x, par = solve()
             torch.cuda.synchronize()
+            outs.append((x, par))
             if run:
                 walls[name] = (time.perf_counter() - t) / its * 1e3
             check(bool(torch.isfinite(x).all()), f"{name} finite")
@@ -1714,29 +1851,51 @@ def deblur_path(dev, card, gen):
               f"iterations, set-up included); card {card}")
         check(max(abs(e - ref) for e in errs) <= DEBLUR_GATE,
               f"{name} final relErrors {errs!r}")
+        if one is not None:  # the fused solvers' searches, stepped eagerly
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            xe, lamse = eagerly(solve)
+            torch.cuda.synchronize()
+            walls[name + " eager"] = (time.perf_counter() - t) / its * 1e3
+            xg, lams0 = outs[0]
+            diff = (lamse != lams0).nonzero()
+            check(torch.equal(xe, xg) and not len(diff),
+                  f"{name}: the replayed searches differ from the eager "
+                  "ones" + (f", first at iteration {int(diff[0]) + 1}"
+                            if len(diff) else ", in x"))
+            print(f"[9] {name}: replayed graphs vs eager searches: x and the "
+                  f"{lams0.numel()} lambdas bitwise equal; wall "
+                  f"{walls[name]!r} / {walls[name + ' eager']!r} ms/iter; "
+                  f"card {card}")
         if "SVD" in name:
             check(pars == [ref_par] * 2, f"{name} k {pars} vs {ref_par}")
         # its profile right after its runs (a profile of the first solve
         # after all of them saw no device time on an H100, six times over);
         # the fused solvers' of iteration SYNC_ITER against its own wall
-        step, wall, per = solve, walls[name], its
+        profiled = [("", solve, walls[name], its)]
         if one is not None:
-            step, per = one(), 1
-            step()
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            step()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t) * 1e3
-        parts = {}
-        busy = device_ms(step, 1, parts, sessions=1, warm=False) / per
-        top = sorted(parts.items(), key=lambda kv: -kv[1])[:5]
-        print(f"[9] {name}"
-              + ("" if one is None else f", iteration {SYNC_ITER}")
-              + f": device busy {busy * 1e3!r} us/iter, wall "
-              f"{wall * 1e3!r} us/iter, idle share {1 - busy / wall!r}; "
-              "busy by kernel (us/iter): "
-              + ", ".join(f"{k} {v / per * 1e3!r}" for k, v in top))
+            step = one()
+            profiled = []
+            for how, fn in (("", step), (" eager", partial(eagerly, step))):
+                fn()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                profiled.append((how, fn, (time.perf_counter() - t) * 1e3, 1))
+        for how, step, wall, per in profiled:
+            parts = {}
+            busy = device_ms(step, 1, parts, sessions=1, warm=False) / per
+            top = sorted(parts.items(), key=lambda kv: -kv[1])[:5]
+            syncs = ("" if one is None else
+                     f"; host syncs {sum(count_syncs(step).values())}")
+            print(f"[9] {name}{how}"
+                  + ("" if one is None else f", iteration {SYNC_ITER}")
+                  + f": device busy {busy * 1e3!r} us/iter, wall "
+                  f"{wall * 1e3!r} us/iter, idle share "
+                  f"{1 - busy / wall!r}{syncs}; busy by kernel (us/iter): "
+                  + ", ".join(f"{k} {v / per * 1e3!r}" for k, v in top)
+                  + f"; card {card}")
     launched = dict(bk.launch_counts)
     check(not any(launched.values()), f"K1-K3 launched in [9]: {launched}")
     print(f"[9] deblurring took {time.perf_counter() - t0:.1f} s (device us "
@@ -3073,6 +3232,16 @@ def gel_path(dev, card, gen):
     print(f"[12b] launches in the gel path: {launches}")
     check(all(v > 0 for v in launches.values()),
           "a kernel never launched in the gel path")
+    # cgls_normal's loop replayed as a CUDA graph against the same loop
+    # stepped eagerly: x and k to the bit, launches equal
+    n = its["cgls_normal"]
+    (_, k), tg, te, got = graph_vs_eager(
+        "gel cgls_normal", lambda: cgls_normal(blk, bv, x0, n),
+        lambda j: cgls_normal(blk, bv, x0, j))
+    print(f"[12b] cgls_normal, replayed graph vs eager: x and k ({k}) "
+          f"bitwise equal, launches {got} in both; wall {tg / n * 1e3!r} / "
+          f"{te / n * 1e3!r} ms/iter (set-up and the capture included); "
+          f"card {card}")
     for name, fn in fns.items():
         parts = {}
         try:
@@ -3248,13 +3417,14 @@ def phase12(dev, card, gen, A, dyn):
     return entries
 
 
-# Phase 13: the port's twins of the six runnable demos at full width,
-# each through its ``main`` with the arguments of ``TWIN_ARGS`` (those of
-# demo_reference.TWINS) and the default C++ matrix builder, as a user
-# builds. JAX_TWINS: the relErrors of the JAX demos on the same
-# arguments, in the order their ``relerr`` returned them (``python3
-# demo_reference.py twins``: JAX 0.9.0, x64 off, trips_tpu's C++
-# builder), each held to TWIN_GATE; where the port's float32 formula
+# Phase 13: the port's twins of the demos at full width, each through its
+# ``main`` with the arguments of ``TWIN_ARGS`` (those of
+# demo_reference.TWINS; ``demo_your_data`` at its defaults, offline on
+# the 'H' image) and the default C++ matrix builder, as a user builds.
+# JAX_TWINS: the relErrors of the JAX demos on the same arguments, in the
+# order their ``relerr`` returned them (``python3 demo_reference.py
+# twins``: JAX 0.9.0, x64 off, trips_tpu's C++ builder; ``data_twins``
+# for ``demo_your_data``), each held to TWIN_GATE; where the port's float32 formula
 # departs from JAX's, to JAX's float64 run, as [8] and [9] hold the same
 # solves (JAX_TWINS_F64; JAX's float32 value printed beside). The fused
 # dynamic demo's float32 GCV solves are gated too: where their search
@@ -3273,6 +3443,7 @@ TWIN_ARGS = {
     "demo_fused_tpu tomo": ["--config", "tomo", "--nx", "256", "--views",
                             "60"],
     "demo_fused_dynamic": ["--nx", "128", "--nt", "33", "--views", "10"],
+    "demo_your_data": [],
 }
 JAX_TWINS = {
     "demo_tomography": [0.09874777204896255, 0.1089005897518851,
@@ -3296,6 +3467,7 @@ JAX_TWINS = {
                             0.1377069354057312],
     "demo_fused_dynamic": [0.2106951936389655, 0.2135198251865873,
                            0.21064778173235624],
+    "demo_your_data": [0.19812042631270055],
 }
 # (twin, index of the solve) -> JAX float64: fused GKS with DP on the 1D
 # problem is [9]'s "fused GKS dp" (the same solve); on the tomo
@@ -3334,11 +3506,12 @@ TWIN_LAUNCHES = {
     # checkpointed runs: a whole one, the killed one (set-up and 6
     # iterations), the resumed one (4 iterations, no set-up)
     "demo_fused_dynamic": (2 * 26 + 26 + 18 + 8, 2 * 14 + 14 + 10 + 4, 0),
+    "demo_your_data": (0, 0, 0),  # Blur2D: a conv2d
 }
 
 
 def phase13(dev, card):
-    """Phase 13: the six demo twins at full width on the card: each
+    """Phase 13: the demo twins at full width on the card: each
     relError against the JAX demo's, K1-K3 launches against the loops'
     counts, the fused dynamic demo's resume bit for bit, each wall."""
     import importlib
@@ -3421,6 +3594,7 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from trips_tpu_torch import _build
+    from trips_tpu_torch.core import loop
     from trips_tpu_torch.krylov import cgls, cgls_normal
     from trips_tpu_torch.krylov.cgls import CHUNK, _cgn_chunk, _cgn_init
     from trips_tpu_torch.operators import FirstDerivative2D, ShearFanProjector
@@ -3740,6 +3914,52 @@ def main():
     check(all(v > 0 for c in shear_launches.values() for v in c.values()),
           "a shear kernel never launched")
 
+    # the loops as replayed CUDA graphs (one captured step each) against
+    # the same loops stepped eagerly on the same card: x and k to the bit,
+    # the launches equal; then the launches of one replay
+    graph_runs = {}
+    cases = [(f"banded {kind} {solver}", fn, op, False, its)
+             for kind, op in ops.items()
+             for solver, fn, its in (("cgls", cgls, CGLS_ITERS),
+                                     ("cgls_normal", cgls_normal, CGN_ITERS))]
+    cases += [(f"shear {kind} G {solver}", fn, op, on, CGLS_ITERS)
+              for kind, op in shear_ops.items()
+              for solver, fn, on in (("cgls", cgls, False),
+                                     ("cgls_normal K6", cgls_normal, True))]
+    for label, fn, op, on, its in cases:
+        with shear_ata(on):
+            (_, k), tg, te, got = graph_vs_eager(
+                label, lambda fn=fn, op=op, its=its: fn(op, bv, x0, its, 0.0),
+                lambda j, fn=fn, op=op: fn(op, bv, x0, j, 0.0))
+        graph_runs[label] = (k, got)
+        print(f"[3] {label}, {its} iterations, replayed graph vs eager: x "
+              f"and k ({k}) bitwise equal, launches {got} in both; wall "
+              f"{tg / k * 1e3!r} / {te / k * 1e3!r} ms/iter (set-up and the "
+              f"capture included); card {card}")
+    per_replay = {}
+    for label, fn, op, on in (
+            ("banded float32 cgls", cgls, f32, False),
+            ("banded float32 cgls_normal", cgls_normal, f32, False),
+            ("shear bfloat16 G cgls", cgls, shear_ops["bfloat16"], False),
+            ("shear bfloat16 G cgls_normal K6", cgls_normal,
+             shear_ops["bfloat16"], True)):
+        counts = []
+        with shear_ata(on):
+            for j in (1, CHUNK + 1):  # one step eagerly, then CHUNK replays
+                bk.reset_launch_counts()
+                sk.reset_launch_counts()
+                fn(op, bv, x0, j, 0.0)
+                torch.cuda.synchronize()
+                counts.append({**bk.launch_counts, **sk.launch_counts})
+        per_replay[label] = {n: (counts[1][n] - counts[0][n]) / CHUNK
+                             for n in counts[0]
+                             if counts[1][n] != counts[0][n]}
+    print(f"[3] launches per replay of a captured step: {per_replay}")
+    check(per_replay["banded float32 cgls_normal"] == {"banded_ata": 1}
+          and per_replay["banded float32 cgls"] == {"banded_fwd": 1,
+                                                    "banded_adj": 1},
+          f"banded launches per replay {per_replay}")
+
     # ---- 6. the demo's regularized solvers: gates, launches, walls -----
     # (walls here, before any profiler session; device profiles after 5)
     demo = demo_solves(OP, bv, FirstDerivative2D(nx, ny, device=dev), delta)
@@ -3790,13 +4010,19 @@ def main():
     for kind, op in ops.items():
         for solver, fn in (("cgls_normal", cgls_normal), ("cgls", cgls)):
             walls = {}
+            # kernels: the loop replayed as a CUDA graph; eager: the same
+            # kernels, the loop stepped eagerly; plain: eagerly on the
+            # kernels' plain versions
             for label, o in (("plain", plain_copy(op)), ("kernels", op),
-                             ("kernels", op), ("plain", plain_copy(op))):
-                fn(o, bv, x0, 2, 0.0)
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                _, k = fn(o, bv, x0, TIMED_ITERS, 0.0)
-                torch.cuda.synchronize()
+                             ("eager", op), ("eager", op), ("kernels", op),
+                             ("plain", plain_copy(op))):
+                with (loop.eager() if label == "eager"
+                      else contextlib.nullcontext()):
+                    fn(o, bv, x0, 2, 0.0)
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    _, k = fn(o, bv, x0, TIMED_ITERS, 0.0)
+                    torch.cuda.synchronize()
                 walls.setdefault(label, []).append(
                     (time.perf_counter() - t, k))
             line = []
@@ -3804,8 +4030,34 @@ def main():
                 rate = float(np.mean([k * 2 * nnz / w for w, k in runs]))
                 ms = float(np.mean([w / k for w, k in runs])) * 1e3
                 line.append(f"{label} {rate!r} nnz/s ({ms!r} ms/iter)")
-                if label == "kernels":
-                    kernel_wall["banded", kind, solver] = ms
+                if label != "plain":
+                    kernel_wall["banded", kind, solver
+                                + " eager" * (label == "eager")] = ms
+            if kind == "float32":  # host syncs, replayed and eagerly
+                syncs = [sum(count_syncs(lambda: fn(op, bv, x0, TIMED_ITERS,
+                                                    0.0)).values())]
+                with loop.eager():
+                    syncs.append(sum(count_syncs(lambda: fn(
+                        op, bv, x0, TIMED_ITERS, 0.0)).values()))
+                line.append(f"host syncs per iteration {syncs[0] / k!r} "
+                            f"replayed, {syncs[1] / k!r} eager")
+                # a 2-step solve: its second step is the one replay of a
+                # graph captured for it, so the difference of the two walls
+                # is the capture's cost (median of 5 each)
+                two = {}
+                for how in ("graph", "eager") * 5:
+                    with (loop.eager() if how == "eager"
+                          else contextlib.nullcontext()):
+                        torch.cuda.synchronize()
+                        t = time.perf_counter()
+                        fn(op, bv, x0, 2, 0.0)
+                        torch.cuda.synchronize()
+                    two.setdefault(how, []).append(
+                        (time.perf_counter() - t) * 1e3)
+                line.append(f"a 2-step solve {np.median(two['graph'])!r} ms "
+                            f"replayed, {np.median(two['eager'])!r} eager "
+                            f"(the capture and one replay against one "
+                            f"eager step)")
             print(f"[4] {solver} {kind}, {TIMED_ITERS} iterations: "
                   + "; ".join(line))
     # the chunked loops against the parent's (a host read of the stopping
@@ -3842,6 +4094,7 @@ def main():
         p = copy.copy(op)
         p._rot, p._rot_t = sk.shear_rotate_ref, sk.shear_rotate_adjoint_ref
         p._ata = sk.gcontract_ata_ref
+        p.capturable = False  # the plain versions' loops step eagerly
         return p
 
     for kind, op in shear_ops.items():
@@ -3851,12 +4104,15 @@ def main():
             walls = {}
             with shear_ata(on):
                 for label, o in (("plain", shear_plain(op)), ("kernels", op),
+                                 ("eager", op), ("eager", op),
                                  ("kernels", op), ("plain", shear_plain(op))):
-                    fn(o, bv, x0, 2, 0.0)
-                    torch.cuda.synchronize()
-                    t = time.perf_counter()
-                    _, k = fn(o, bv, x0, TIMED_ITERS, 0.0)
-                    torch.cuda.synchronize()
+                    with (loop.eager() if label == "eager"
+                          else contextlib.nullcontext()):
+                        fn(o, bv, x0, 2, 0.0)
+                        torch.cuda.synchronize()
+                        t = time.perf_counter()
+                        _, k = fn(o, bv, x0, TIMED_ITERS, 0.0)
+                        torch.cuda.synchronize()
                     walls.setdefault(label, []).append(
                         (time.perf_counter() - t, k))
             line = []
@@ -3865,8 +4121,9 @@ def main():
                 ms = float(np.mean([w / k for w, k in runs])) * 1e3
                 line.append(f"{label} {ms!r} ms/iter (effective "
                             f"{rate!r} nnz/s)")
-                if label == "kernels":
-                    kernel_wall["shear", kind, solver] = ms
+                if label != "plain":
+                    kernel_wall["shear", kind, solver
+                                + " eager" * (label == "eager")] = ms
             print(f"[4] shear {solver} {kind} G, {TIMED_ITERS} iterations: "
                   + "; ".join(line))
     print(f"[4] card: {card}; kernel ms: device time (torch.profiler) "
@@ -4080,15 +4337,22 @@ def main():
     # the bench's path 4: K4, the two stage-B products and K5 per iteration
     loops.append(("shear bfloat16 G cgls", cgls, shear_ops["bfloat16"], False,
                   ("shear", "bfloat16", "cgls")))
+    # each loop replayed as a CUDA graph (the profiler records the
+    # replayed kernels one by one) and stepped eagerly, each against its
+    # own wall of [4]
     for label, solver, op, on, key in loops:
-        wall = kernel_wall[key]
-        with shear_ata(on):
-            busy, by_kernel = loop_profile(solver, op, bv, x0)
-        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:5]
-        print(f"[5] {label}: device busy {busy * 1e3!r} us/iter, wall "
-              f"{wall * 1e3!r} us/iter, idle share {1 - busy / wall!r}; "
-              f"busy by kernel (us/iter): "
-              + ", ".join(f"{k} {v * 1e3!r}" for k, v in top))
+        for how in ("graph", "eager"):
+            wall = kernel_wall[key[:2] + (key[2] + " eager" * (
+                how == "eager"),)]
+            with shear_ata(on), (loop.eager() if how == "eager"
+                                 else contextlib.nullcontext()):
+                busy, by_kernel = loop_profile(solver, op, bv, x0)
+            top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:5]
+            print(f"[5] {label} ({how}): device busy {busy * 1e3!r} "
+                  f"us/iter, wall {wall * 1e3!r} us/iter, idle share "
+                  f"{1 - busy / wall!r}; busy by kernel (us/iter): "
+                  + ", ".join(f"{k} {v * 1e3!r}" for k, v in top)
+                  + f"; card {card}")
 
     for solver, runs in loop_turns.items():
         for label in ("parent", "this"):

@@ -142,7 +142,14 @@ port's float32 formulas depart from JAX's (about 10 minutes).
 ``twins_small`` runs the six JAX demos at the small sizes of
 ``tests/test_torch_demos.py`` (``TWINS_SMALL``; about 2 minutes), whose
 relErrors that test holds the twins to where a JAX demo takes longer
-than its budget.
+than its budget. ``data_twins`` (about a minute) runs
+``demos/demo_your_data.py`` at its defaults (``chip_smoke.py`` [13]'s
+``JAX_TWINS["demo_your_data"]``) and at ``--n 32 --iters 5``, and
+``demos/demo_saved_data.py --iters 6`` on the bundles of
+``tests/torch_saved_bundles.py`` (written into a temporary directory),
+each through its own ``main`` with x64 off, its solvers and true image
+recorded; it prints each relError at full precision
+(``tests/test_torch_demos.py``).
 """
 import contextlib
 import os
@@ -995,6 +1002,76 @@ def run_twins(names=(), twins=None):
         print(f"{name} relerr {rec!r} {time.time() - t:.1f} s", flush=True)
 
 
+# demo_your_data at chip_smoke.py [13]'s arguments (its defaults) and at
+# tests/test_torch_demos.py's; demo_saved_data on that test's bundles
+YOUR_DATA = {"small": ["--n", "32", "--iters", "5"], "[13]": []}
+SAVED_DATA_SMALL = ["--iters", "6"]
+
+
+def run_data_twins():
+    """The two data demos' relErrors at full precision: the JAX demos
+    print theirs to four decimals, so their own ``main`` runs with the
+    solvers and the problem's true image recorded (x64 off, CPU)."""
+    import importlib
+    import tempfile
+
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    sys.path[:0] = [str(ROOT / "demos"), str(ROOT), str(ROOT / "tests")]
+    import jax
+
+    jax.config.update("jax_enable_x64", False)
+    print("x64", jax.config.jax_enable_x64, jax.__version__, flush=True)
+    import torch_saved_bundles
+
+    def recorded(demo, solvers, problem, method, pick):
+        """Record the x of each call of ``solvers`` and ``pick`` of what
+        the problem class's ``method`` returns (the true image)."""
+        xs, truth = [], []
+        for name in solvers:
+            orig = getattr(demo, name)
+            setattr(demo, name, lambda *a, orig=orig, **k: xs.append(
+                orig(*a, **k)) or xs[-1])
+        base = getattr(demo, problem)
+
+        def take(self, *a, **k):
+            out = getattr(base, method)(self, *a, **k)
+            truth.append(pick(out))
+            return out
+
+        setattr(demo, problem, type(problem, (base,), {method: take}))
+        return xs, truth
+
+    def errs(xs, truth):
+        xt = np.asarray(truth[0], np.float64).reshape(-1)
+        return [float(np.linalg.norm(np.asarray(x[0], np.float64).reshape(-1)
+                                     - xt) / np.linalg.norm(xt)) for x in xs]
+
+    for label, argv in YOUR_DATA.items():
+        demo = importlib.import_module("demo_your_data")
+        xs, truth = recorded(demo, ["GKS"], "Deblurring2D", "gen_true",
+                             lambda out: out)
+        sys.argv = ["demo_your_data"] + argv
+        t = time.time()
+        demo.main()
+        print(f"demo_your_data {label} {argv} relerr {errs(xs, truth)!r} "
+              f"{time.time() - t:.1f} s", flush=True)
+        del sys.modules["demo_your_data"]
+    here = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        torch_saved_bundles.write(Path(tmp))
+        os.chdir(tmp)
+        try:
+            demo = importlib.import_module("demo_saved_data")
+            xs, truth = recorded(demo, ["GKS", "MMGKS"], "Tomography",
+                                 "gen_saved_data", lambda out: out[1])
+            sys.argv = ["demo_saved_data"] + SAVED_DATA_SMALL
+            demo.main()
+        finally:
+            os.chdir(here)
+    print(f"demo_saved_data small {SAVED_DATA_SMALL} relerr "
+          f"{errs(xs, truth)!r}", flush=True)
+
+
 def run_twins64():
     """The fused demos' solves of ``twins`` with x64 on and float64 data
     (the packs stay float32 and bfloat16): ``demos/demo_fused_tpu.py
@@ -1085,12 +1162,14 @@ if __name__ == "__main__":
              "l_curve": run_l_curve,
              "l_curve64": lambda: run_l_curve(x64=True),
              "twins": run_twins, "twins64": run_twins64,
-             "twins_small": lambda: run_twins(twins=TWINS_SMALL)}
+             "twins_small": lambda: run_twins(twins=TWINS_SMALL),
+             "data_twins": run_data_twins}
     if len(sys.argv) > 2 and sys.argv[1] == "twins":
         sys.exit(run_twins(sys.argv[2:]))
     if len(sys.argv) != 2 or sys.argv[1] not in modes:
         sys.exit(f"usage: {sys.argv[0]} "
                  "jax|torch|dynamic|fused|fused64|fused_torch|deblur|"
                  "deblur64|deblur_probe|streamed|batched|gel|l_curve|"
-                 "l_curve64|twins [name ...]|twins64|twins_small")
+                 "l_curve64|twins [name ...]|twins64|twins_small|"
+                 "data_twins")
     modes[sys.argv[1]]()

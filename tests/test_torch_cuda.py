@@ -13,7 +13,10 @@ emulation (``tests/torch_fixed_point.py``). A
 bfloat16 output (K4's canvases, K6's U before its second product) may
 round an entry one bf16 step the other way: 1e-3 there. K6's float32 path
 sums 3xTF32 products (each within 2^-22 of the float32 product), also held
-to 1e-5.
+to 1e-5. The loops (CGLS, LSQR, the fused solvers' searches) replayed as
+CUDA graphs give the eager loops' x, k and lambdas to the bit, with the
+same launch counts; a capture that fails raises; the graph pool does not
+grow; the profiler records a replay's kernels.
 """
 import numpy as np
 import pytest
@@ -1180,3 +1183,272 @@ def test_sharded_dynamic_on_card(cuda, dynamic32, kind):
     x = torch.randn(op.shape[1], device=cuda, generator=g)
     y = torch.randn(op.shape[0], device=cuda, generator=g)
     _sharded_gates(sop, op, x, y)
+
+
+# ---- the loops as replayed CUDA graphs ---------------------------------------
+def _graph_and_eager(fn):
+    """fn() with its loops replayed as CUDA graphs, then with them stepped
+    eagerly (``core.loop.eager``): [(output, K1-K3 launches, K4-K6
+    launches)] for each."""
+    import contextlib
+
+    from trips_tpu_torch.core import loop
+
+    out = []
+    for ctx in (contextlib.nullcontext, loop.eager):
+        bk.reset_launch_counts()
+        sk.reset_launch_counts()
+        with ctx():
+            res = fn()
+        torch.cuda.synchronize()
+        out.append((res, dict(bk.launch_counts), dict(sk.launch_counts)))
+    return out
+
+
+def _same_bits(a, b):
+    if isinstance(a, torch.Tensor):
+        return a.dtype == b.dtype and torch.equal(a, b)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(map(_same_bits, a, b))
+    return a == b
+
+
+def _loop_case(name, cuda, dynamic32):
+    """(operator, b) of a loop case on the card."""
+    from trips_tpu_torch.core import BatchedBlockDiagOperator
+    from trips_tpu_torch.operators import Blur2D
+    from trips_tpu_torch.sparse import CsrOperator, EllOperator
+
+    kind = name.split()[0]
+    if kind == "banded":
+        dtype = {"f32": None, "bf16": torch.bfloat16, "int8": "int8"}[
+            name.split()[1]]
+        op = _op(cuda, dtype)
+    elif kind == "shear":
+        op = ShearFanProjector(48, views=10, g_dtype=torch.bfloat16,
+                               device=cuda)
+    elif kind == "dynamic":
+        op = _dyn(dynamic32, "bucketed", None, cuda)
+    elif kind == "frames":
+        op = BatchedBlockDiagOperator(_op(cuda, None), 3)
+    elif kind in ("csr", "ell"):
+        A = fan_beam_matrix(40, views=12).astype(np.float32)
+        op = (CsrOperator if kind == "csr" else EllOperator).from_scipy(
+            A, device=cuda)
+    else:
+        op = Blur2D((9, 9), (3, 3), 48, 48, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.rand(op.shape[1], device=cuda, generator=g)
+    b = op.matvec(x) + 0.01 * torch.randn(op.shape[0], device=cuda,
+                                          generator=g)
+    return op, b
+
+
+LOOP_CASES = ["banded f32 cgls", "banded bf16 cgls", "banded int8 cgls",
+              "banded f32 cgls_normal", "banded bf16 cgls_normal",
+              "banded int8 cgls_normal", "banded f32 lsqr",
+              "banded f32 cgls stops", "shear cgls", "shear cgls_normal K6",
+              "dynamic cgls_normal", "frames cgls_normal", "csr cgls",
+              "ell cgls", "blur cgls"]
+
+
+@pytest.mark.parametrize("name", LOOP_CASES)
+def test_loop_graph_bitwise_eager(cuda, dynamic32, name, monkeypatch):
+    """Each loop on the card as replays of one captured step: x and k the
+    eager loop's to the bit, and each kernel launched as often (a replay
+    counts its step's launches)."""
+    from trips_tpu_torch.krylov import cgls, cgls_normal, lsqr
+
+    monkeypatch.setenv("TRIPS_TPU_SHEAR_ATA", "1" if "K6" in name else "0")
+    op, b = _loop_case(name, cuda, dynamic32)
+    assert op.capturable
+    x0 = torch.zeros(op.shape[1], device=cuda)
+    if "lsqr" in name:
+        def fn():
+            return lsqr(op, b, 25, damp=0.05, atol=1e-4, btol=1e-4,
+                        device=cuda)
+    else:
+        solver = cgls_normal if "cgls_normal" in name else cgls
+        iters, tol = 19, 0.0
+        if "stops" in name:
+            # the rule fires at step 11, mid-chunk: the replays after it
+            # leave the state frozen
+            from trips_tpu_torch.krylov.cgls import _init, _step
+
+            s, r = _init(op, b, x0), []
+            for _ in range(11):
+                s = _step(op, 0.0, s)
+                r.append(float(torch.sqrt(s.gamma) / s.norms_t0))
+            iters, tol = 40, r[-1] * (1 + 1e-6)
+            assert min(r[:-1]) > tol
+
+        def fn():
+            return solver(op, b, x0, iters, tol)
+    (xg, bg, sg), (xe, be, se) = _graph_and_eager(fn)
+    assert _same_bits(xg, xe), (xg[1], xe[1])
+    assert bg == be and sg == se
+    assert sum(bg.values()) + sum(sg.values()) > 0 or name.split()[0] in (
+        "csr", "ell", "blur")
+    if "stops" in name:
+        assert xg[1] == 11
+
+
+def test_checkpointed_resume_graph_bitwise_eager(cuda):
+    """``cgls_normal_checkpointed`` on the card, killed after its first
+    chunk and resumed from the state it saved: the uninterrupted run's
+    iterate and k, and both the eager run's, to the bit."""
+    from trips_tpu_torch.core import loop
+    from trips_tpu_torch.solvers.checkpointed import \
+        cgls_normal_checkpointed
+
+    op = _op(cuda, None)
+    b = op.matvec(torch.rand(op.shape[1], device=cuda))
+    x0 = torch.zeros(op.shape[1], device=cuda)
+    saved = {}
+
+    def keep(it, **state):
+        saved.setdefault("s", state)
+
+    full = cgls_normal_checkpointed(op, b, x0, 20, chunk=6, callback=keep,
+                                    device=cuda)
+    res = cgls_normal_checkpointed(op, b, x0, 20, chunk=6,
+                                   resume_state=saved["s"], device=cuda)
+    with loop.eager():
+        eager = cgls_normal_checkpointed(op, b, x0, 20, chunk=6, device=cuda)
+    assert int(saved["s"]["k"]) == 6
+    assert _same_bits(res, full) and _same_bits(full, eager)
+
+
+SEARCH_CASES = ["fused_gks gcv", "fused_gks l_curve", "fused_gks dp",
+                "fused_mmgks dp", "fused_hybrid_lsqr gcv"]
+
+
+@pytest.mark.parametrize("name", SEARCH_CASES)
+def test_fused_search_graph_bitwise_eager(cuda, demo64, name):
+    """The fused solvers' Brent and Newton searches replayed on the card:
+    x and the lambda sequence the eager searches' to the bit, K2/K3
+    launched as often."""
+    from trips_tpu_torch.operators import FirstDerivative2D
+    from trips_tpu_torch.solvers import fused as F
+
+    d = demo64
+    op, b = d["ops"]["cuda"], d["b"].to(cuda)
+    L = FirstDerivative2D(d["nx"], d["nx"], device=cuda)
+    solver, mode = name.split()
+    kw = dict(n_iter=6, regparam_mode=mode, delta=d["delta"], device=cuda)
+    if solver != "fused_hybrid_lsqr":
+        kw.update(projection_dim=3)
+    args = (op, b) if solver == "fused_hybrid_lsqr" else (op, b, L)
+    (rg, bg, _), (re, be, _) = _graph_and_eager(
+        lambda: getattr(F, solver)(*args, **kw))
+    assert _same_bits(rg[:2], re[:2]) and bg == be
+    assert torch.isfinite(rg[1]).all()
+
+
+def test_device_searches_graph_bitwise_eager(cuda):
+    """``gcv_lambda`` and ``lcurve_lambda`` (Brent over k x k solves,
+    ``torch.linalg.solve_ex`` captured) and ``dp_lambda`` (Newton), in
+    float32 and float64, replayed: the eager lam to the bit."""
+    from trips_tpu_torch.regparam import device as td
+
+    rng = np.random.default_rng(0)
+    k = 10
+    R_A = np.triu(rng.standard_normal((k, k))) + np.diag(np.logspace(0, -4,
+                                                                     k))
+    R_L, bp = np.eye(k), rng.standard_normal(k)
+    B = np.eye(k + 1)[:, :k] * 0.5 + np.eye(k + 1, k, -1) * 0.3
+    bb = rng.standard_normal(k + 1)
+    for dt in (np.float32, np.float64):
+        for fn, args in ((td.gcv_lambda, (R_A, R_L, bp)),
+                         (td.lcurve_lambda, (R_A, R_L, bp)),
+                         (td.dp_lambda, (B, bb, 0.2 * np.linalg.norm(bb)))):
+            args = [a.astype(dt) if isinstance(a, np.ndarray) else a
+                    for a in args]
+            (g, _, _), (e, _, _) = _graph_and_eager(
+                lambda: fn(*args, device=cuda))
+            assert _same_bits(g, e), (fn, dt, float(g), float(e))
+
+
+def test_failed_capture_raises(cuda):
+    """A step that reads the host cannot be captured: the loop raises (it
+    never falls back to stepping eagerly), leaves the launch counts as
+    they were and the card usable."""
+    from trips_tpu_torch.krylov import cgls
+
+    class HostRead(BucketedBandedProjector):
+        def matvec(self, x):
+            float(x.sum())  # a sync: refused while capturing
+            return super().matvec(x)
+
+    op = _op(cuda, None)
+    bad = HostRead.__new__(HostRead)
+    bad.__dict__.update(op.__dict__)
+    b = op.matvec(torch.rand(op.shape[1], device=cuda))
+    x0 = torch.zeros(op.shape[1], device=cuda)
+    bk.reset_launch_counts()
+    with pytest.raises(RuntimeError):
+        cgls(bad, b, x0, 10, 0.0)
+    torch.cuda.synchronize()
+    # the eager first step's launches, no capture's
+    assert bk.launch_counts == {"banded_fwd": 2, "banded_adj": 2,
+                                "banded_ata": 0}
+    x, k = cgls(op, b, x0, 10, 0.0)
+    assert k == 10 and torch.isfinite(x).all()
+
+
+def test_graph_memory_does_not_grow(cuda, demo64):
+    """One Brent graph a fused iteration, freed when its search returns;
+    the pool they share is reused: a second solve reserves no more device
+    memory than the first left reserved."""
+    from trips_tpu_torch.operators import FirstDerivative2D
+    from trips_tpu_torch.solvers import fused as F
+
+    d = demo64
+    op, b = d["ops"]["cuda"], d["b"].to(cuda)
+    L = FirstDerivative2D(d["nx"], d["nx"], device=cuda)
+
+    def solve():
+        return F.fused_gks(op, b, L, projection_dim=3, n_iter=10,
+                           regparam_mode="gcv", device=cuda)
+
+    solve()
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved()
+    solve()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_reserved() <= reserved
+
+
+def test_device_busy_ms_reads_graph_replays(cuda):
+    """``telemetry.device_busy_ms`` on a profile of replayed graphs: the
+    profiler records each replayed kernel, so the busy time of a replayed
+    ``cgls_normal`` is the eager solve's within the profiler's spread; a
+    card profile with no device kernel still raises."""
+    import contextlib
+
+    from trips_tpu_torch.core import loop
+    from trips_tpu_torch.krylov import cgls_normal
+    from trips_tpu_torch.utils.telemetry import device_busy_ms
+
+    op = _op(cuda, None)
+    b = op.matvec(torch.rand(op.shape[1], device=cuda))
+    x0 = torch.zeros(op.shape[1], device=cuda)
+    act = [torch.profiler.ProfilerActivity.CPU,
+           torch.profiler.ProfilerActivity.CUDA]
+    busy = {}
+    for label, ctx in (("graph", contextlib.nullcontext),
+                       ("eager", loop.eager)):
+        with ctx():
+            cgls_normal(op, b, x0, 24)
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=act) as prof:
+                cgls_normal(op, b, x0, 24)
+                torch.cuda.synchronize()
+        busy[label] = device_busy_ms(prof)
+        names = {e.key for e in prof.key_averages()}
+        assert any("ata_kernel" in n for n in names), label
+    assert 0.5 * busy["eager"] <= busy["graph"] <= 1.5 * busy["eager"], busy
+    with torch.profiler.profile(activities=act) as prof:
+        torch.cuda.synchronize()
+    with pytest.raises(RuntimeError):
+        device_busy_ms(prof)

@@ -1,5 +1,5 @@
-"""The port's twins of the six runnable demos (``trips_tpu_torch/demos/``)
-on the CPU at small sizes, against the JAX demos on the same arguments.
+"""The port's twins of the demos (``trips_tpu_torch/demos/``) on the CPU
+at small sizes, against the JAX demos on the same arguments.
 
 Each twin runs through its ``main`` with ``--device cpu``; its relErrors
 (float32, as the JAX demos run with x64 off) are held to the JAX demo's
@@ -11,7 +11,10 @@ returned, in order, from
     python3 demo_reference.py twins_small
 
 (JAX 0.9.0, x64 off, trips_tpu's C++ matrix builder; ``TWINS_SMALL``
-there holds the arguments below). The fused dynamic twin's resume must
+there holds the arguments below), and ``python3 demo_reference.py
+data_twins`` for the two data demos (``demo_saved_data`` on the bundles
+of ``tests/torch_saved_bundles.py``; without them it prints where to put
+them and solves nothing). The fused dynamic twin's resume must
 equal its uninterrupted run bit for bit, as the JAX demo asserts. The
 dynamic twin's loaders read only files already present: without one
 they raise, before any solve. ``tests/test_torch_demos_jax.py`` runs each
@@ -23,7 +26,10 @@ import torch
 
 from trips_tpu_torch.demos import (demo_1d_deblurring, demo_2d_deblurring,
                                    demo_dynamic_ct, demo_fused_dynamic,
-                                   demo_fused_tpu, demo_tomography)
+                                   demo_fused_tpu, demo_saved_data,
+                                   demo_tomography, demo_your_data)
+
+import torch_saved_bundles
 
 # one unit of the printed 4 decimals; the tomo configuration's 20-step
 # float32 Krylov solves on the bfloat16 pack (fused Hybrid LSQR, cgls,
@@ -67,7 +73,12 @@ TWINS = {
         demo_dynamic_ct, ["--nx", "16", "--nt", "2", "--iters", "4"],
         [0.17849920330922756, 0.17855976368154883, 0.17082920078804906,
          0.1681920933486231, 0.2018009271076798]),
+    "demo_your_data": (
+        demo_your_data, ["--n", "32", "--iters", "5"],
+        [0.21864992604414046]),
 }
+# demo_saved_data --iters 6 on tests/torch_saved_bundles.py's bundles
+SAVED_DATA = (["--iters", "6"], [0.10586174085818384, 0.18795260590546506])
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -95,6 +106,29 @@ def test_twin_matches_jax_demo(twin, capsys):
     for k, (name, err, r) in enumerate(zip(out, errs, ref)):
         assert abs(err - r) <= CG_TOL.get((twin, k), TOL), (name, err, r)
         assert f"{err:.4f}" in printed, name
+
+
+def test_saved_data_twin_matches_jax_demo(tmp_path, monkeypatch, capsys):
+    torch_saved_bundles.write(tmp_path)
+    monkeypatch.chdir(tmp_path)
+    argv, ref = SAVED_DATA
+    out = demo_saved_data.main(argv + ["--device", "cpu"])
+    printed = capsys.readouterr().out
+    assert list(out) == ["GKS (lam=1)", "MMGKS (lam=1e-3)"]
+    for (name, err), r in zip(out.items(), ref):
+        assert abs(err - r) <= TOL, (name, err, r)
+        assert f"{err:.4f}" in printed, name
+
+
+def test_saved_data_twin_without_bundles(tmp_path, monkeypatch, capsys):
+    """Without the bundles under ``./data/image_data`` the twin prints the
+    JAX demo's guidance and solves nothing; it fetches nothing."""
+    monkeypatch.chdir(tmp_path)
+    assert demo_saved_data.main(["--device", "cpu"]) is None
+    printed = capsys.readouterr().out
+    assert printed.startswith("saved-data bundles unavailable:")
+    assert "./data/image_data to run this demo." in printed
+    assert not any(tmp_path.rglob("*"))
 
 
 def test_dynamic_loaders_never_download(tmp_path, monkeypatch):

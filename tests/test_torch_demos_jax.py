@@ -1,4 +1,4 @@
-"""The six demo twins against the JAX demos, live, in float64 on the CPU.
+"""The demo twins against the JAX demos, live, in float64 on the CPU.
 
 Each twin's own ``problem`` (or builder) makes its inputs, which must
 equal the JAX demo's made the JAX demo's way (the same seed and calls;
@@ -42,8 +42,11 @@ import trips_tpu.problems as jp
 import trips_tpu.solvers as js
 from trips_tpu_torch.demos import (demo_1d_deblurring, demo_2d_deblurring,
                                    demo_dynamic_ct, demo_fused_dynamic,
-                                   demo_fused_tpu, demo_tomography)
+                                   demo_fused_tpu, demo_saved_data,
+                                   demo_tomography, demo_your_data)
 from trips_tpu_torch.sparse import CsrOperator
+
+import torch_saved_bundles
 
 F64 = torch.float64
 X_RTOL, SEARCH_RTOL = 1e-10, 1e-7
@@ -207,6 +210,52 @@ def test_demo_2d_deblurring_matches_jax():
             jA, jb, W, pnorm=2, qnorm=1, projection_dim=3,
             n_iter=min(iters, 15), regparam="gcv")}
     _held(runs, jax_runs, searched=lambda name: "(dp)" not in name)
+
+
+def test_demo_your_data_matches_jax():
+    """32x32 h_im (no --image), (5, 5) PSF of spread (1.5, 1.5), 1% noise,
+    GKS with GCV, 3 iterations."""
+    n, iters = 32, 3
+    A, b, delta, x_true = demo_your_data.problem(n, None, "cpu", F64)
+    np.random.seed(0)
+    prob = jp.Deblurring2D()
+    jA = prob.forward_Op([5, 5], (1.5, 1.5), n, n)
+    jx_true = prob.gen_true("h_im", nx=n, ny=n)
+    jb, jdelta = prob.add_noise(
+        prob.gen_data(np.asarray(jx_true).reshape(-1, 1)), "Gaussian", 0.01)
+    jb = np.asarray(jb).reshape(-1)
+    assert np.array_equal(np.asarray(x_true), np.asarray(jx_true))
+    assert np.array_equal(b, jb) and float(jdelta) == delta
+    runs = demo_your_data.solves(A, b, n, iters)
+    jax_runs = {"GKS (gcv)": js.GKS(jA, jb, jo.FirstDerivative2D(n, n),
+                                    projection_dim=3, n_iter=iters,
+                                    regparam="gcv")}
+    _held(runs, jax_runs)
+
+
+def test_demo_saved_data_matches_jax(tmp_path, monkeypatch):
+    """``tests/torch_saved_bundles.py``'s head/CT200 bundles (8x8, 72
+    rays), 4 iterations: GKS with lam = 1 and MMGKS with lam = 1e-3 on the
+    matrix as an ``EllOperator``."""
+    from trips_tpu.sparse import EllOperator as JaxEll
+
+    iters = 4
+    torch_saved_bundles.write(tmp_path)
+    monkeypatch.chdir(tmp_path)
+    op, b, x_true, n = demo_saved_data.problem("head", "cpu", F64)
+    jA, jx_true, jb = jp.Tomography().gen_saved_data("head")
+    jb = np.asarray(jb).reshape(-1)
+    assert np.array_equal(x_true, jx_true) and np.array_equal(b, jb)
+    assert n == 8 and op.dtype == F64
+    jop, L = JaxEll.from_scipy(jA), jo.FirstDerivative2D(n, n)
+    runs = demo_saved_data.solves(op, b, n, iters)
+    jax_runs = {
+        "GKS (lam=1)": js.GKS(jop, jb, L, projection_dim=3, n_iter=iters,
+                              regparam=1.0),
+        "MMGKS (lam=1e-3)": js.MMGKS(jop, jb, L, pnorm=2, qnorm=1,
+                                     projection_dim=3, n_iter=iters,
+                                     regparam=0.001)}
+    _held(runs, jax_runs)
 
 
 def test_demo_fused_tpu_deblur1d_matches_jax():

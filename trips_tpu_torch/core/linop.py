@@ -8,7 +8,9 @@ their ``CompositeOperator``. The base ``matmat`` and
 ``rmatmat`` loop over columns; an operator that can apply ``(n, k)`` at once
 overrides them. An operator may add ``normal_matvec`` (``x -> A^T A x``)
 when it has a fused normal apply. Operators hold their tensors on one
-``device``.
+``device``. ``capturable`` says whether a loop may capture the applies in
+a CUDA graph (``core/loop.py``); a combinator is capturable when all its
+operators are.
 """
 from __future__ import annotations
 
@@ -23,6 +25,11 @@ class LinearOperator:
 
     shape: tuple
     device: torch.device = torch.device("cpu")
+    # Whether the applies may be captured in a CUDA graph: device work on
+    # the operator's own tensors alone, no host read, no collective. A loop
+    # over a capturable operator on the card runs as replays of one
+    # captured step (core/loop.py); any other steps eagerly.
+    capturable = False
 
     @property
     def dtype(self) -> torch.dtype:
@@ -82,12 +89,22 @@ class LinearOperator:
         return self.todense().cpu().numpy()
 
 
+def _capturable(*ops):
+    """Whether every one of ``ops`` may be captured (an object without the
+    attribute steps eagerly)."""
+    return all(getattr(o, "capturable", False) for o in ops)
+
+
 class AdjointOperator(LinearOperator):
     def __init__(self, op):
         self.op = op
         self.shape = (op.shape[1], op.shape[0])
         self.dtype = op.dtype
         self.device = op.device
+
+    @property
+    def capturable(self):
+        return _capturable(self.op)
 
     def matvec(self, x):
         return self.op.rmatvec(x)
@@ -108,6 +125,8 @@ class AdjointOperator(LinearOperator):
 
 class DenseOperator(LinearOperator):
     """Dense matrix operator (projected small systems, tests)."""
+
+    capturable = True
 
     def __init__(self, mat, device=None):
         self.mat = torch.as_tensor(mat, device=device)
@@ -134,6 +153,8 @@ class DenseOperator(LinearOperator):
 class IdentityOperator(LinearOperator):
     """``I_n``; ``todense`` in ``dtype`` (float32 unless given) on
     ``device`` (the card unless "cpu" is asked for)."""
+
+    capturable = True
 
     def __init__(self, n, dtype=None, device=DEFAULT):
         self.shape = (n, n)
@@ -164,6 +185,10 @@ class ScaledOperator(LinearOperator):
         self.dtype = op.dtype
         self.device = op.device
 
+    @property
+    def capturable(self):
+        return _capturable(self.op)
+
     def matvec(self, x):
         return self.alpha * self.op.matvec(x)
 
@@ -190,6 +215,10 @@ class BatchedBlockDiagOperator(LinearOperator):
         self.shape = (op.shape[0] * nt, op.shape[1] * nt)
         self.dtype = op.dtype
         self.device = op.device
+
+    @property
+    def capturable(self):
+        return _capturable(self.op)
 
     def matvec(self, x):
         X = x.reshape(self.nt, self.op.shape[1])
@@ -243,6 +272,10 @@ class CompositeOperator(LinearOperator):
         self.shape = (A.shape[0], B.shape[1])
         self.dtype, self.device = _common((A, B))
 
+    @property
+    def capturable(self):
+        return _capturable(self.A, self.B)
+
     def matvec(self, x):
         return self.A.matvec(self.B.matvec(x))
 
@@ -282,6 +315,10 @@ class VStackOperator(LinearOperator):
             i += m
         return out
 
+    @property
+    def capturable(self):
+        return _capturable(*self.ops)
+
     def matvec(self, x):
         return torch.cat([o.matvec(x) for o in self.ops])
 
@@ -313,6 +350,10 @@ class BlockDiagOperator(LinearOperator):
             outs.append(apply(o, X[j : j + o.shape[side]]))
             j += o.shape[side]
         return torch.cat(outs, dim=0)
+
+    @property
+    def capturable(self):
+        return _capturable(*self.ops)
 
     def matvec(self, x):
         return self._blocks(x, 1, lambda o, part: o.matvec(part))

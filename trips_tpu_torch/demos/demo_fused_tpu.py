@@ -3,8 +3,9 @@
 whole solve is one jitted TPU program). On the card this is the path
 with no host work in an iteration's arithmetic: the Krylov recurrences,
 the choice of the regularization parameter (GCV, DP, L-curve), the
-projected solves and the basis growth all run on the device, chunks of
-the searches enqueued and read once (``core.loop``).
+projected solves and the basis growth all run on the device, each search
+a captured CUDA graph replayed a chunk of steps between host reads
+(``core.loop``).
 
 Two configurations: ``deblur1d`` (the 1D deblurring problem, n = 200,
 float32) and ``tomo`` (a tectonic phantom, the fan-beam matrix packed as

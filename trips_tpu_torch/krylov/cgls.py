@@ -1,18 +1,19 @@
-"""CGLS: conjugate gradients on the normal equations, eager torch loops.
+"""CGLS: conjugate gradients on the normal equations.
 
 Counterpart of ``trips_tpu/krylov/cgls.py`` with the same recurrences,
 stopping rules and ``(x, k)`` returns. The JAX loops run on the device in
-one ``lax.while_loop``; here each iteration is enqueued from Python.
-``cgls`` and ``cgls_normal`` run in chunks of ``CHUNK`` steps and read the
-stopping test back once per chunk (one host sync, ``core.loop.run``): the
-steps of a chunk are enqueued without a test, each step's state is kept,
-and one read gives the first step at which the rule fired; the loop
-returns that step's state. So the iterates and ``k`` are those of a loop
-that tests the rule every step (the same tensors, no rounding changed);
-the price is at most ``CHUNK - 1`` wasted steps (their applies) after the
-rule fires. The fixed-length variants never sync inside the loop, and
-``cgls_history`` freezes the state with ``torch.where`` once the rule
-fires, as the JAX scan does.
+one ``lax.while_loop``. ``cgls`` and ``cgls_normal`` run through
+``core.loop.run`` and read the stopping test back once per ``CHUNK``
+steps: on the card as replays of one captured CUDA graph of a masked step
+(an operator whose ``capturable`` is true; others step eagerly), on the
+CPU as a chunk of steps enqueued without a test, each state kept. Either
+way the loop returns the first state at which the rule fired, so the
+iterates and ``k`` are those of a loop that tests the rule every step (the
+same tensors, no rounding changed); the price is at most ``CHUNK - 1``
+wasted steps (their applies) after the rule fires. ``k`` is a host int:
+the loop's count of steps. The fixed-length variants never sync inside
+the loop, and ``cgls_history`` freezes the state with ``torch.where``
+once the rule fires, as the JAX scan does.
 """
 from __future__ import annotations
 
@@ -20,7 +21,8 @@ from dataclasses import dataclass, replace
 
 import torch
 
-from ..core.loop import run
+from ..core import loop
+from ..core.linop import _capturable
 
 CHUNK = 8  # steps between two host reads of the stopping test
 
@@ -74,9 +76,9 @@ def _step(A, tol, s: CGLSState) -> CGLSState:
 
 def cgls(A, b, x0, max_iter: int, tol):
     """CGLS; returns (x, k_iterations)."""
-    s = run(lambda s: _step(A, tol, s), _init(A, b, x0), _done, CHUNK,
-            max_iter, "cgls")
-    return s.x, s.k
+    s, k = loop.run(lambda s: _step(A, tol, s), _init(A, b, x0), _done,
+                    CHUNK, max_iter, "cgls", capture=_capturable(A))
+    return s.x, k
 
 
 def cgls_fixed(A, b, x0, iters: int):
@@ -137,8 +139,10 @@ def _cgn_chunk(A, tol, s: CGNState, k_end: int) -> CGNState:
     """Run the ``cgls_normal`` recurrence up to iteration ``k_end``: the same
     loop as ``cgls_normal``, so stopping at ``k_end`` and resuming does not
     change any rounding."""
-    return run(lambda s: _cgn_step(A, tol, s), s, _done, CHUNK, k_end - s.k,
-               "cgls_normal")
+    out, steps = loop.run(lambda s: _cgn_step(A, tol, s), s, _done, CHUNK,
+                          k_end - s.k, "cgls_normal",
+                          capture=_capturable(A))
+    return replace(out, k=s.k + steps)
 
 
 def cgls_normal(A, b, x0, max_iter: int, tol=0.0):

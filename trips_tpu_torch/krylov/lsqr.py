@@ -6,11 +6,12 @@ plus scalar Givens recurrences, the hot loop of CGLS with the better
 conditioned bidiagonal recurrence. Stopping: atol/btol on the residual
 estimates, or the iteration cap.
 
-JAX runs it as one ``lax.while_loop``; here it is ``core.loop.run``:
-the steps of a chunk are enqueued with their tests and kept, the state at
-the first test that fails is returned (so ``x`` and ``k`` are the
-``while_loop``'s) and the steps after it dropped, and the host reads the
-tests once per ``CHUNK`` steps.
+JAX runs it as one ``lax.while_loop``; here it is ``core.loop.run``: on
+the card (an operator whose ``capturable`` is true) replays of one
+captured CUDA graph of the masked step, else the steps of a chunk
+enqueued with their tests and kept. The state at the first test that
+fails is returned (so ``x`` and ``k`` are the ``while_loop``'s), and the
+host reads the tests once per ``CHUNK`` steps.
 """
 from __future__ import annotations
 
@@ -19,7 +20,8 @@ from typing import NamedTuple
 import torch
 
 from ..core.device import DEFAULT, check_operators, resolve
-from ..core.loop import run
+from ..core import loop
+from ..core.linop import _capturable
 
 CHUNK = 8  # steps between two host reads of the stopping test
 
@@ -97,6 +99,7 @@ def lsqr(A, b, max_iter: int, damp=0.0, atol=1e-8, btol=1e-8,
         return LSQRState(x, u, v, w, alfa, beta, rhobar, phibar_new, rnorm,
                          arnorm, s.k + 1, done)._asdict()
 
-    s = run(step, s0._asdict(), lambda s: ~cond(s), CHUNK, name="lsqr",
-            counter="k")
-    return s["x"], int(s["k"])
+    s, k = loop.run(step, s0._asdict(), lambda s: ~cond(s), CHUNK,
+                    name="lsqr", counter="k",
+                    capture=_capturable(A))
+    return s["x"], k

@@ -126,6 +126,8 @@ class Blur2D(LinearOperator):
     image that is the pad split ``lo = p - 1 - p // 2``, ``hi = p // 2``
     (even sizes included)."""
 
+    capturable = True  # a padded gather and one conv2d
+
     def __init__(self, dim, spread, nx, ny, psf=None, dtype=torch.float32,
                  device=DEFAULT):
         if psf is None:

@@ -27,6 +27,8 @@ from ..core.linop import LinearOperator
 class FirstDerivative1D(LinearOperator):
     """Reference: gen_first_derivative_operator (operators.py:24-28)."""
 
+    capturable = True
+
     def __init__(self, n, device=DEFAULT):
         self.shape = (n - 1, n)
         self.device = resolve(device)
@@ -46,6 +48,8 @@ class FirstDerivative2D(LinearOperator):
     """Reference: gen_first_derivative_operator_2D (operators.py:30-36), in
     the general form for nx != ny (the JAX package's). Row order:
     [per-row differences (axis 1); per-column differences (axis 0)]."""
+
+    capturable = True
 
     def __init__(self, nx, ny, device=DEFAULT):
         self.nx, self.ny = nx, ny
@@ -82,6 +86,8 @@ class SpaceTimeDerivative(LinearOperator):
     ``[kron(I_nt, D_spatial); kron(D_nt, I_{nx*ny})]``; the frames are the
     columns of one spatial apply."""
 
+    capturable = True
+
     def __init__(self, nx, ny, nt, device=DEFAULT):
         self.nx, self.ny, self.nt = nx, ny, nt
         self.spatial = FirstDerivative2D(nx, ny, device=device)
@@ -111,6 +117,8 @@ class CenteredSpaceTimeDerivative(LinearOperator):
     ``operators_old.py:47-60``): per frame the centered 2D derivative
     ``[d/dx; d/dy]`` (frame-major), then the centered time block; shape
     (3*nx*ny*nt, nx*ny*nt)."""
+
+    capturable = True
 
     def __init__(self, nx, ny, nt, device=DEFAULT):
         from .weights import CenteredDerivative2D

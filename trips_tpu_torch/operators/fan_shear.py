@@ -74,6 +74,8 @@ class ShearFanProjector(LinearOperator):
     _rot_t = staticmethod(shear_rotate_adjoint)   # K5
     _ata = staticmethod(gcontract_ata)            # K6
 
+    capturable = True  # K4-K6 and cuBLAS products; plans kept
+
     def __init__(self, nx, angles=None, views=None, det_count=None,
                  det_width=None, source_origin=None, origin_det=None,
                  ny=None, dtype=torch.float32, g_dtype=None, device=DEFAULT):

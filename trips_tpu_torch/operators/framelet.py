@@ -67,6 +67,8 @@ class FrameletOperator(LinearOperator):
     F-order, adjoint ``(W_n^T @ Y @ W_m)`` the same; ``X`` is the F-order
     ``(n, m)`` image of ``x``."""
 
+    capturable = True
+
     def __init__(self, n, m, l, dtype=torch.float32, device=DEFAULT):  # noqa: E741
         self.n, self.m, self.l = n, m, l
         self.device = resolve(device)

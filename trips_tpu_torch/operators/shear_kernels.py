@@ -36,8 +36,12 @@ import weakref
 import numpy as np
 import torch
 
-launch_counts = {"shear_rotate": 0, "shear_rotate_adjoint": 0,
-                 "gcontract_ata": 0}
+from ..core.loop import counted
+
+# a replayed CUDA graph of a loop step counts its launches per replay
+# (core/loop.py)
+launch_counts = counted({"shear_rotate": 0, "shear_rotate_adjoint": 0,
+                         "gcontract_ata": 0})
 
 _KIND = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_BF16_N = 1024  # K6 bf16 keeps U (64 x p_pad) in shared memory

@@ -28,6 +28,8 @@ class CenteredDerivative2D(LinearOperator):
     [kron(I, D_c); kron(D_c, I)] with D_c the centered stencil, zero edges.
     Shape (2*nx*ny, nx*ny); applies ``(n, k)`` columns at once."""
 
+    capturable = True
+
     def __init__(self, nx, ny, device=DEFAULT):
         self.nx, self.ny = nx, ny
         self.shape = (2 * nx * ny, nx * ny)

@@ -54,6 +54,10 @@ class ShardedBandedProjector(LinearOperator):
     ``(W, S, Pm, scales)``; ``aidxs``: their global angle ids; ``is_cols``:
     their drive flags. ``shape`` and the vectors are the whole operator's."""
 
+    # an all_reduce per apply (gloo stages it through the host; NCCL is
+    # not checked under capture): the loops over it step eagerly
+    capturable = False
+
     def __init__(self, stacks, aidxs, is_cols, shape, nx, p, n_groups, nnz,
                  n_pad, mesh, axis, device=DEFAULT):
         self.device = resolve(device)

@@ -68,6 +68,10 @@ class ShardedBsrOperator(LinearOperator):
     ``n_pad`` and ``m_pad`` (None where the range is empty); ``shape`` the
     padded ``(m_pad, n_pad)``."""
 
+    # an all_reduce per apply (gloo stages it through the host; NCCL is
+    # not checked under capture): the loops over it step eagerly
+    capturable = False
+
     def __init__(self, fwd, adj, rows, cols_range, shape, block_shape, nnz,
                  mesh, axis, device):
         self.fwd, self.adj = fwd, adj
@@ -138,6 +142,10 @@ class ShardedDynamicBsrOperator(LinearOperator):
     one block-diagonal CSR of its frames each (``fwd``, ``adj``: None
     where empty). ``x`` is frame-major ``(nt * n,)``; ``shape`` the true
     ``(nt * m, nt * n)``, ``frame_shape`` the padded ``(m_pad, n_pad)``."""
+
+    # an all_reduce per apply (gloo stages it through the host; NCCL is
+    # not checked under capture): the loops over it step eagerly
+    capturable = False
 
     def __init__(self, fwd, adj, frames, rows, cols_range, shape,
                  frame_shape, block_shape, nnz, nt, mesh, device):

@@ -38,6 +38,10 @@ class ShardedDynamicBandedOperator(LinearOperator):
     slabs ``(W, S, Pm, aidx[, scales])``, each ``(frames, na_local,
     ...)``, ``frames`` its ``(t0, t1)``; ``is_cols``: their drive flags."""
 
+    # an all_reduce per apply (gloo stages it through the host; NCCL is
+    # not checked under capture): the loops over it step eagerly
+    capturable = False
+
     def __init__(self, stacks, is_cols, frames, shape, nx, p, views, n_groups,
                  nnz, nt, n_pad, mesh, t_axis="time", a_axis="angles",
                  device=DEFAULT):

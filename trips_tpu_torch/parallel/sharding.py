@@ -171,6 +171,10 @@ class ShardedEllOperator(LinearOperator):
     ``vals``/``cols`` hold this rank's rows ``rows`` of the forward table,
     ``vals_t``/``cols_t`` its rows ``cols_range`` of the transpose."""
 
+    # an all_reduce per apply (gloo stages it through the host; NCCL is
+    # not checked under capture): the loops over it step eagerly
+    capturable = False
+
     def __init__(self, vals, cols, vals_t, cols_t, rows, cols_range, shape,
                  nnz, mesh, axis):
         self.vals, self.cols = vals, cols
@@ -228,6 +232,10 @@ class ShardedDynamicOperator(LinearOperator):
     ``(nt * m, nt * n)``, ``frame_shape`` the padded ``(m_f, n_f)``. This
     rank holds frames ``frames`` and, of each, forward rows ``rows`` and
     transpose rows ``cols_range``, stacked ``(nt_local, rows, w)``."""
+
+    # an all_reduce per apply (gloo stages it through the host; NCCL is
+    # not checked under capture): the loops over it step eagerly
+    capturable = False
 
     def __init__(self, vals, cols, vals_t, cols_t, frames, rows, cols_range,
                  shape, frame_shape, nnz, nt, mesh):

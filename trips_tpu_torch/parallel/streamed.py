@@ -67,6 +67,10 @@ class StreamedDynamicBandedOperator(LinearOperator):
     ``BucketedBandedProjector``, built with ``device="cpu"``.
     """
 
+    # uploads on a side stream with events both ways and host-side slot
+    # bookkeeping per frame: it steps eagerly (cgls_normal_streamed)
+    capturable = False
+
     def __init__(self, frame_ops, device=DEFAULT):
         self.frame_ops = list(frame_ops)
         if not self.frame_ops:

@@ -13,11 +13,17 @@ the tensors' device so the fused solvers never wait on a per-step read:
 - ``gcv_tsvd_k`` .. ``dp_tgsvd_k``: the discrete truncation searches.
 
 JAX runs Brent and Newton as ``lax.while_loop``s; here each is
-``core.loop.run``: every step enqueued with its test and kept, the
-state at the first failing test returned (the same iterates step for
-step) and the later ones dropped, one host read per chunk of steps.
-``BRENT_CHUNK`` covers the usual search in one read (``chip_smoke.py``
-[8] prints the lengths).
+``core.loop.run``: on the card replays of one captured CUDA graph of the
+masked step (the function and the pencil are new tensors at every call,
+so a search captures its own graph), on the CPU every step enqueued with
+its test and kept. The state at the first failing test is returned (the
+same iterates step for step), the later steps are dropped, and the host
+reads once per chunk of steps. A float32 search takes 14-69 steps
+(``chip_smoke.py`` [8] prints the lengths): ``BRENT_CHUNK`` reads it in
+one to five reads, since a replayed step costs its device time (~0.2 ms)
+and a longer chunk would cost more in steps past the stop than it saves
+in reads. A Newton step is a few small kernels, so ``NEWTON_CHUNK``'s
+steps past the stop cost little.
 
 Brent also stops at the first step that changes no entry of its state.
 The step is a function of that state alone, so every later step would
@@ -37,9 +43,9 @@ from __future__ import annotations
 import torch
 
 from ..core.device import DEFAULT, resolve, svd
-from ..core.loop import run
+from ..core import loop
 
-BRENT_CHUNK = 72  # Brent steps between two host reads
+BRENT_CHUNK = 16  # Brent steps between two host reads
 NEWTON_CHUNK = 32  # DP Newton steps between two host reads
 
 
@@ -146,8 +152,8 @@ def fminbound(func, x1, x2, xtol=1e-12, maxfun=1000, dtype=torch.float64,
                         != torch.stack([s[k] for k in fields])).any()
         return new
 
-    s = run(body, state, lambda s: ~cond(s), BRENT_CHUNK, name="brent",
-            counter="num")
+    s, _ = loop.run(body, state, lambda s: ~cond(s), BRENT_CHUNK,
+                    name="brent", counter="num")
     return s["xf"]
 
 
@@ -251,7 +257,7 @@ def _dp_newton_filtered(sv2, bhat, thresh, testzero):
         return dict(beta=beta_new, done=done, it=s["it"] + 1)
 
     unattainable = testzero >= 0
-    s = run(body, dict(
+    s, _ = loop.run(body, dict(
         beta=torch.full((), 1e-8, dtype=bhat.dtype, device=bhat.device),
         done=unattainable,
         it=torch.zeros((), dtype=torch.int32, device=bhat.device)),

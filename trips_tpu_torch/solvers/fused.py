@@ -18,7 +18,8 @@ the device with *masked* linear algebra, as JAX's one-program versions do:
 
 lam is chosen on the device by ``regparam.device``'s searches in filtered
 SVD coordinates ('gcv' | 'dp' | 'l_curve', or a fixed 'scalar'), each a
-loop with one host read per chunk of steps. The iteration loop itself is a
+loop with one host read per chunk of steps (on the card a captured CUDA
+graph of one step, replayed, ``core/loop.py``). The iteration loop itself is a
 Python loop over a fixed count and reads nothing back. The K x K and
 m x K algebra stays with ``torch.linalg`` (``qr``, ``svd``, ``solve_ex``;
 ``svd`` with the driver of ``core.device.svd`` on the card); ``svd`` has

@@ -74,6 +74,8 @@ class BucketedBandedProjector(LinearOperator):
     _adj = staticmethod(banded_adj_buckets)
     _ata = staticmethod(banded_ata_buckets)
 
+    capturable = True  # K1-K3 on the current stream, plans kept
+
     def __init__(self, stacks, aidxs, is_cols, shape, nx, p, n_groups, nnz,
                  n_pad, device=DEFAULT):
         self.device = resolve(device)

@@ -57,9 +57,12 @@ import weakref
 
 import torch
 
+from ..core.loop import counted
 from .pack import dequant_slab
 
-launch_counts = {"banded_fwd": 0, "banded_adj": 0, "banded_ata": 0}
+# a replayed CUDA graph of a loop step counts its launches per replay
+# (core/loop.py)
+launch_counts = counted({"banded_fwd": 0, "banded_adj": 0, "banded_ata": 0})
 
 _KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _OP = {"banded_fwd": 0, "banded_adj": 1, "banded_ata": 2}  # csrc/banded.cu

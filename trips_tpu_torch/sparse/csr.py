@@ -44,6 +44,8 @@ class CsrOperator(LinearOperator):
     operator's dtype and return the promoted dtype of the operator and the
     input."""
 
+    capturable = True  # cuSPARSE SpMV on the current stream
+
     def __init__(self, A, AT, shape, nnz):
         self.A = A
         self.AT = AT

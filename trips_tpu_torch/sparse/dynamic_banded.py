@@ -87,6 +87,8 @@ class DynamicBandedOperator(LinearOperator):
     _adj = staticmethod(banded_adj_buckets)
     _ata = staticmethod(banded_ata_buckets)
 
+    capturable = True  # K1-K3 on the current stream, plans kept
+
     def __init__(self, groups, shape, nx, p, views, n_groups, nnz, nt,
                  n_pad=None, device=DEFAULT):
         # groups: (W, S, Pm, aidx) of the row- and the column-driven angles

@@ -44,6 +44,8 @@ class EllOperator(LinearOperator):
     ``vals``/``cols`` ``(m, w)``, ``vals_t``/``cols_t`` ``(n, w_t)``
     tensors on one device (int32 or int64 columns)."""
 
+    capturable = True  # gathers and sums
+
     def __init__(self, vals, cols, vals_t, cols_t, shape, nnz=None):
         self.vals, self.cols = vals, cols
         self.vals_t, self.cols_t = vals_t, cols_t

@@ -79,11 +79,15 @@ def device_busy_ms(prof):
     ``prof`` recorded: its device events (kernels, copies, memsets)
     summed, each once (the profiler also credits a kernel that an aten op
     launched to the op's own device time, so a sum over all its entries
-    would count those twice); events on concurrent streams may overlap. A
-    session without the CUDA activity has no device time to give:
-    ValueError. A CUDA session that recorded no device time raises
-    RuntimeError rather than return 0, which would read as a device idle
-    the whole run."""
+    would count those twice); events on concurrent streams may overlap.
+    A replayed CUDA graph (the port's loops on the card, ``core/loop.py``)
+    is recorded kernel by kernel: each kernel of a replay is a device event
+    of its own, and the graph's launch (``cudaGraphLaunch``) a host event
+    with no device time, so a replayed loop's busy time is summed as an
+    eager loop's (``tests/test_torch_cuda.py``, the card tests). A session
+    without the CUDA activity has no device time to give: ValueError. A
+    CUDA session that recorded no device time raises RuntimeError rather
+    than return 0, which would read as a device idle the whole run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
 
