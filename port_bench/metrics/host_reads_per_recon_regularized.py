@@ -1,0 +1,3 @@
+"""``host_reads_per_recon`` in the regularized cells, where it moves
+``regularized_recon_per_s``."""
+from .host_reads_per_recon import read  # noqa: F401

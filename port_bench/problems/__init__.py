@@ -1,0 +1,1 @@
+"""See port_bench.harness."""
