@@ -1452,3 +1452,69 @@ def test_device_busy_ms_reads_graph_replays(cuda):
         torch.cuda.synchronize()
     with pytest.raises(RuntimeError):
         device_busy_ms(prof)
+
+
+def test_trace_spans_of_replayed_loops(cuda, demo64, tmp_path):
+    """The span recorder on the card: one ``loop.capture`` inside the
+    ``loop.cgls_normal`` span of a replayed solve and inside each
+    ``loop.brent`` search of ``fused_gks``, as many as the loops' own
+    ``captures``; ``core.loop.TRACE`` reads the same with the recorder on
+    as off; under a CUDA profiler session every span is a
+    ``user_annotation`` of the exported trace, and the busy time counts no
+    annotation."""
+    import json
+
+    from trips_tpu_torch.core import loop
+    from trips_tpu_torch.krylov import cgls_normal
+    from trips_tpu_torch.operators import FirstDerivative2D
+    from trips_tpu_torch.solvers import fused as F
+    from trips_tpu_torch.utils import telemetry
+
+    d = demo64
+    op, b = d["ops"]["cuda"], d["b"].to(cuda)
+    L = FirstDerivative2D(d["nx"], d["nx"], device=cuda)
+    x0 = torch.zeros(op.shape[1], device=cuda)
+
+    def solves():
+        loop.TRACE = []
+        try:
+            cgls_normal(op, b, x0, 24)
+            F.fused_gks(op, b, L, projection_dim=3, n_iter=4,
+                        regparam_mode="gcv", device=cuda)
+            torch.cuda.synchronize()
+            return [(n, r, None if s is None else int(s))
+                    for n, r, s in loop.TRACE]
+        finally:
+            loop.TRACE = None
+
+    off = solves()
+    with telemetry.tracing() as t:
+        on = solves()
+    assert on == off
+    loops = [s for s in t.spans if s.name in ("loop.cgls_normal",
+                                              "loop.brent")]
+    assert [s.name for s in loops] == ["loop.cgls_normal"] + ["loop.brent"] * 4
+    captures = [s for s in t.spans if s.name == "loop.capture"]
+    for s in loops:
+        assert s.attrs["captures"] == 1
+        assert sum(c.parent is s for c in captures) == 1
+    assert len(captures) == len(loops)
+    assert [(s.name[5:], s.attrs["reads"]) for s in loops] == \
+        [(n, r) for n, r, _ in off if n in ("cgls_normal", "brent")]
+
+    act = [torch.profiler.ProfilerActivity.CPU,
+           torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=act) as prof:
+        with telemetry.tracing() as t:
+            solves()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    ann = sorted((e["ts"], e["name"]) for e in events
+                 if e.get("cat") == "user_annotation")
+    assert [n for _, n in ann] == [s.name for s in t.spans]
+    kernels = [(e["ts"], e["ts"] + e["dur"]) for e in events
+               if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    window = max(b for _, b in kernels) - min(a for a, _ in kernels)
+    assert 0 < telemetry.device_busy_ms(prof) * 1e3 <= window

@@ -20,8 +20,9 @@ chord oracle of the fan-beam matrix.
   load; nothing builds it).
 - ``telemetry``: ``Timer`` and ``SolverTrace`` keep JAX's records (the
   clock's readings aside), ``profile`` writes a Chrome trace on the CPU,
-  and ``device_busy_ms`` refuses a CPU profile and a card profile that
-  recorded no device time.
+  and ``device_busy_ms`` takes the union of a card profile's device
+  intervals and refuses a CPU profile and a card profile that recorded
+  no device time.
 - ``config``: JAX's constants and ``round_up``.
 """
 import json
@@ -256,32 +257,39 @@ def test_profile_writes_trace_on_cpu(tmp_path):
 
 
 def test_device_busy_refuses_an_empty_card_profile():
-    """A card profile's device events are summed once each: an aten op's
-    own entry, which the profiler also credits with its kernels' time, is
-    left out; a card profile with no device time raises."""
+    """A card profile's busy time is the union of its device events'
+    intervals: two overlapping kernels (two streams) count once, and an aten
+    op, which the profiler also credits with its kernels' time, and a span's
+    annotation on the device's timeline not at all; a card profile with no
+    device time raises."""
+    from types import SimpleNamespace
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
 
-    class Event:
-        def __init__(self, us, device_type):
-            self.self_device_time_total = us
-            self.device_type = device_type
+    def event(a, b, device_type, annotation=False):
+        return SimpleNamespace(time_range=SimpleNamespace(start=a, end=b),
+                               device_type=device_type,
+                               is_user_annotation=annotation)
 
     class Profile:
         activities = {ProfilerActivity.CPU, ProfilerActivity.CUDA}
-        events = []
+        evts = []
 
-        def key_averages(self):
-            return self.events
+        def events(self):
+            return self.evts
 
     prof = Profile()
-    prof.events = [Event(0.0, DeviceType.CUDA), Event(700.0, DeviceType.CPU)]
+    prof.evts = [event(5.0, 5.0, DeviceType.CUDA),
+                 event(0.0, 700.0, DeviceType.CPU)]
     with pytest.raises(RuntimeError, match="no device kernel"):
         ttel.device_busy_ms(prof)
-    prof.events = [Event(1500.0, DeviceType.CUDA),
-                   Event(1500.0, DeviceType.CUDA),
-                   Event(1500.0, DeviceType.CPU)]  # the op of one of them
-    assert ttel.device_busy_ms(prof) == 3.0
+    prof.evts = [event(1000.0, 2500.0, DeviceType.CUDA),
+                 event(2000.0, 3000.0, DeviceType.CUDA),  # another stream
+                 event(4000.0, 5500.0, DeviceType.CUDA),
+                 event(900.0, 5600.0, DeviceType.CUDA, annotation=True),
+                 event(1000.0, 2500.0, DeviceType.CPU)]  # the op of one
+    assert ttel.device_busy_ms(prof) == 3.5
 
 
 def test_config_matches_jax():

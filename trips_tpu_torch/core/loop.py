@@ -45,6 +45,14 @@ memory cached until the allocator runs short).
 every loop (``steps`` the state's ``counter`` entry, a device tensor read
 by the caller when it wants), so a run can count its syncs and each
 search's length.
+
+Spans (``utils.telemetry``): every loop is a span ``loop.<name>`` whose
+attributes are ``reads`` and ``steps`` (what ``TRACE`` receives),
+``captures`` (graphs captured; under ``emulated()``, where the card would
+capture) and ``replays`` (replays made or emulated). On the card's path a
+span ``loop.capture`` runs from ``capture_begin`` to ``capture_end``
+(instantiation included), and a span ``loop.replay`` over each chunk's
+replays and the host read that ends it.
 """
 from __future__ import annotations
 
@@ -52,6 +60,8 @@ import contextlib
 import dataclasses
 
 import torch
+
+from ..utils import telemetry
 
 TRACE = None
 _MODE = None  # None, "eager" or "emulated": see eager() and emulated()
@@ -109,10 +119,11 @@ def _rebuild(state, tensors):
     return dataclasses.replace(state, **tensors)
 
 
-def _trace(name, reads, state, counter):
+def _trace(span, name, reads, state, counter, **counts):
+    steps = _get(state, counter) if counter is not None else None
+    span.set(reads=reads, steps=steps, **counts)
     if TRACE is not None:
-        TRACE.append((name, reads,
-                      _get(state, counter) if counter is not None else None))
+        TRACE.append((name, reads, steps))
 
 
 def run(step, state, done, chunk, max_steps=None, name="loop", counter=None,
@@ -137,26 +148,27 @@ def run_eager(step, state, done, chunk, max_steps=None, name="loop",
               counter=None):
     """``run`` enqueued step by step: a chunk of steps without a test,
     every state kept, one read of the first one done."""
-    reads, steps, flag = 0, 0, done(state)
-    while max_steps is None or max_steps > 0:
-        states, flags = [state], [flag]
-        n = chunk if max_steps is None else min(chunk, max_steps)
-        for _ in range(n):
-            states.append(step(states[-1]))
-            flags.append(done(states[-1]))
-        if max_steps is not None:
-            max_steps -= n
-        stacked = torch.stack(flags)
-        # the chunk's one host read: the first state done, or none
-        first = int(torch.where(stacked.any(), stacked.byte().argmax(),
-                                len(states)))
-        reads += 1
-        if first < len(states):
-            state, steps = states[first], steps + first
-            break
-        state, flag, steps = states[-1], flags[-1], steps + n
-    _trace(name, reads, state, counter)
-    return state, steps
+    with telemetry.span("loop." + name) as span:
+        reads, steps, flag = 0, 0, done(state)
+        while max_steps is None or max_steps > 0:
+            states, flags = [state], [flag]
+            n = chunk if max_steps is None else min(chunk, max_steps)
+            for _ in range(n):
+                states.append(step(states[-1]))
+                flags.append(done(states[-1]))
+            if max_steps is not None:
+                max_steps -= n
+            stacked = torch.stack(flags)
+            # the chunk's one host read: the first state done, or none
+            first = int(torch.where(stacked.any(), stacked.byte().argmax(),
+                                    len(states)))
+            reads += 1
+            if first < len(states):
+                state, steps = states[first], steps + first
+                break
+            state, flag, steps = states[-1], flags[-1], steps + n
+        _trace(span, name, reads, state, counter)
+        return state, steps
 
 
 def _pool(idx):
@@ -180,52 +192,57 @@ def _pool(idx):
 def _replayed(step, state, done, chunk, max_steps, name, counter, graph):
     """``run`` as replays of one captured masked step (``graph``), or with
     that step called eagerly in place of each replay."""
-    if max_steps is not None and max_steps <= 0:
-        _trace(name, 0, state, counter)
-        return state, 0
-    names = list(_fields(state))
-    # step 1, eagerly; its state becomes the loop's static tensors
-    flag0 = done(state)
-    first = _fields(step(state))
-    cur = {k: torch.where(flag0, _get(state, k), first[k]) for k in names}
-    static = _rebuild(state, cur)
-    count = (~flag0).to(torch.int64)
-    flag = done(static).clone()
+    with telemetry.span("loop." + name) as span:
+        if max_steps is not None and max_steps <= 0:
+            _trace(span, name, 0, state, counter, captures=0, replays=0)
+            return state, 0
+        names = list(_fields(state))
+        # step 1, eagerly; its state becomes the loop's static tensors
+        flag0 = done(state)
+        first = _fields(step(state))
+        cur = {k: torch.where(flag0, _get(state, k), first[k]) for k in names}
+        static = _rebuild(state, cur)
+        count = (~flag0).to(torch.int64)
+        flag = done(static).clone()
 
-    def masked():
-        live = ~flag
-        new = _fields(step(static))
-        vals = [torch.where(live, new[k], cur[k]) for k in names]
-        for k, v in zip(names, vals):
-            cur[k].copy_(v)
-        count.add_(live.to(torch.int64))
-        flag.copy_(done(static))
+        def masked():
+            live = ~flag
+            new = _fields(step(static))
+            vals = [torch.where(live, new[k], cur[k]) for k in names]
+            for k, v in zip(names, vals):
+                cur[k].copy_(v)
+            count.add_(live.to(torch.int64))
+            flag.copy_(done(static))
 
-    # the graph, captured at the first replay (a loop of one step needs
-    # none) and freed when the loop returns
-    g, per_replay = None, ()
-    left = max_steps
-    n = chunk if left is None else min(chunk, left)
-    todo, reads = n - 1, 0  # the first chunk holds the eager step
-    while True:
-        if todo and graph and g is None:
-            g, per_replay = _capture(masked, flag.device)
-        for _ in range(todo):
-            g.replay() if graph else masked()
-        for counts, delta in per_replay:
-            for k, v in delta.items():
-                counts[k] += v * todo
-        if left is not None:
-            left -= n
-        stopped, steps = torch.stack([flag.to(torch.int64), count]).tolist()
-        reads += 1
-        if stopped or left == 0:
-            break
+        # the graph, captured at the first replay (a loop of one step needs
+        # none) and freed when the loop returns
+        g, per_replay, replays = None, (), 0
+        left = max_steps
         n = chunk if left is None else min(chunk, left)
-        todo = n
-    static = _rebuild(state, cur)
-    _trace(name, reads, static, counter)
-    return static, steps
+        todo, reads = n - 1, 0  # the first chunk holds the eager step
+        while True:
+            if todo and graph and g is None:
+                g, per_replay = _capture(masked, flag.device)
+            with telemetry.span("loop.replay"):
+                for _ in range(todo):
+                    g.replay() if graph else masked()
+                stopped, steps = torch.stack([flag.to(torch.int64),
+                                              count]).tolist()
+            for counts, delta in per_replay:
+                for k, v in delta.items():
+                    counts[k] += v * todo
+            replays += todo
+            if left is not None:
+                left -= n
+            reads += 1
+            if stopped or left == 0:
+                break
+            n = chunk if left is None else min(chunk, left)
+            todo = n
+        static = _rebuild(state, cur)
+        _trace(span, name, reads, static, counter,
+               captures=int(replays > 0), replays=replays)
+        return static, steps
 
 
 def _capture(fn, dev):
@@ -237,7 +254,7 @@ def _capture(fn, dev):
     g = torch.cuda.CUDAGraph()
     side.wait_stream(torch.cuda.current_stream(dev))
     try:
-        with torch.cuda.stream(side):
+        with torch.cuda.stream(side), telemetry.span("loop.capture"):
             g.capture_begin(pool=pool)
             try:
                 fn()

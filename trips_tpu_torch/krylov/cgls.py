@@ -23,6 +23,7 @@ import torch
 
 from ..core import loop
 from ..core.linop import _capturable
+from ..utils import telemetry
 
 CHUNK = 8  # steps between two host reads of the stopping test
 
@@ -145,6 +146,7 @@ def _cgn_chunk(A, tol, s: CGNState, k_end: int) -> CGNState:
     return replace(out, k=s.k + steps)
 
 
+@telemetry.request("solve.cgls_normal")
 def cgls_normal(A, b, x0, max_iter: int, tol=0.0):
     """CG on the normal equations ``A^T A x = A^T b`` with one
     ``A.normal_matvec`` per iteration (for the banded operator: one fused

@@ -43,6 +43,7 @@ from ..operators.derivatives import FirstDerivative2D
 from ..operators.weights import (gs_weights, iso_tv_weights,
                                  smoothed_holder_weights)
 from ..regparam.device import _dp_newton_filtered, _solve, fminbound
+from ..utils import telemetry
 
 
 def _inputs(device, A, b, L=None):
@@ -303,6 +304,7 @@ def _run(body, carry, i0, i1):
     return carry
 
 
+@telemetry.request("solve.fused_gks")
 def fused_gks(A, b, L, projection_dim=3, n_iter=20, regparam=1.0,
               use_gcv=None, regparam_mode="gcv", delta=0.0, eta=1.01,
               device=DEFAULT):

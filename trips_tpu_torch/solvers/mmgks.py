@@ -22,10 +22,12 @@ from ..krylov import golub_kahan
 from ..operators.derivatives import FirstDerivative2D
 from ..operators.weights import (gs_weights, iso_tv_weights,
                                  smoothed_holder_weights)
+from ..utils import telemetry
 from ._common import as_op, build_info, host, like, stacked_lstsq, vec
 from .gks import _select_lambda
 
 
+@telemetry.request("solve.mmgks")
 def MMGKS(A, b, L, pnorm=2, qnorm=1, projection_dim=3, n_iter=5,
           regparam="gcv", x_true=None, **kwargs):
     """Returns (x, info)."""
@@ -95,12 +97,13 @@ def MMGKS(A, b, L, pnorm=2, qnorm=1, projection_dim=3, n_iter=5,
         # the reference solves the projected system against Q_A^T b
         # (MMGKS.py:106); gcv and dp choose lam on the weighted data
         bsolve = host(QA.T @ b)
-        lam = _select_lambda(regparam, R_A, R_L,
-                             bproj if regparam in ("gcv", "dp") else bsolve,
-                             out_norm2, delta, eta, kwargs)
-        lambda_history.append(lam)
-
-        y = like(stacked_lstsq(R_A, lam, R_L, bsolve), b)
+        with telemetry.span("mmgks.lambda"):  # lam and y on the host
+            lam = _select_lambda(
+                regparam, R_A, R_L,
+                bproj if regparam in ("gcv", "dp") else bsolve, out_norm2,
+                delta, eta, kwargs)
+            lambda_history.append(lam)
+            y = like(stacked_lstsq(R_A, lam, R_L, bsolve), b)
         x = V @ y
         x_history.append(x)
 
