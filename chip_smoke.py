@@ -80,7 +80,8 @@ each failing the run by raising:
    isotropic TV and group sparsity, Hybrid LSQR (GCV), each final relError
    held to 1e-3 of the JAX package's, and ``cgls_normal`` on the bucketed
    float32 and int8 packs (minima within 0.01); launches against the counts
-   the loops imply; K1-K3's device ms per apply against their bound, plain
+   the loops imply (each solve's ``tsqr_geqrf`` launches counted from 0
+   just before it: two per host MMGKS iteration, no library QR); K1-K3's device ms per apply against their bound, plain
    version and the block-diagonal CSR product; each solver's wall and
    device busy time per iteration and idle share;
 8. the all-on-device solvers at full width: on tomo256x60 (30 iterations)
@@ -199,6 +200,14 @@ each failing the run by raising:
    demo's float32 GCV solves and their twins on float64 data alike),
    K1-K3 launches against the loops' counts, each twin's wall; [13]'s
    seconds.
+14. the R-only tall-skinny QR of MMGKS's panels (``sparse/tall_qr.py``,
+   ``csrc/tsqr.cu``) at the dynamic cell's shapes, 71,610 x 25 unweighted
+   and weighted and 1,622,016 x 23 weighted, float32: against LAPACK's
+   float64 R up to row signs, the float64 Gram matrix and the plain
+   version, the same bits twice, one launch a call; its device ms beside
+   the bound, the plain version and ``torch.linalg.qr(mode="r")``; its
+   launches per solve from [7] (two per host MMGKS iteration, no library
+   QR).
 
 The line before the last holds ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -753,6 +762,7 @@ def dynamic_path(dev, card, gen):
                                         BucketedDynamicBandedOperator,
                                         CsrOperator, DynamicBandedOperator)
     from trips_tpu_torch.sparse import banded_kernels as bk
+    from trips_tpu_torch.sparse import tall_qr
 
     t0 = time.perf_counter()
     (A, b, AA, B, nx, ny, nt, delta, x_true,
@@ -889,10 +899,11 @@ def dynamic_path(dev, card, gen):
                                             regparam="gcv"),
                         lambda info: (info["matvec_count"] // 2,) * 2, n),
     }
-    walls, iters = {}, {}
+    walls, iters, tsqr = {}, {}, {}
     bk.reset_launch_counts()
     for name, (fn, expect, its) in solves.items():
         before = dict(bk.launch_counts)
+        tall_qr.reset_launch_counts()
         torch.cuda.synchronize()
         t = time.perf_counter()
         xs, info = fn()
@@ -913,6 +924,14 @@ def dynamic_path(dev, card, gen):
         check((got["banded_fwd"], got["banded_adj"]) == want
               and got["banded_ata"] == 0, f"{name} launches {got} vs {want}")
         check(abs(err - ref) <= DYN_GATE, f"{name} final relError {err!r}")
+        # every host MMGKS iteration: R of the data panel and of the
+        # regularizer panel, both by tsqr_geqrf; no library QR
+        tsqr[name] = dict(tall_qr.launch_counts)
+        want = {"tsqr_geqrf": 2 * its if "MMGKS" in name else 0,
+                "qr_library": 0}
+        print(f"[7] {name}: tall QR launches {tsqr[name]} (expected "
+              f"{want})")
+        check(tsqr[name] == want, f"{name} tall QR launches {tsqr[name]}")
     cgn_min = {}
     for kind in ("float32", "int8"):
         op = ops["bucketed " + kind]
@@ -974,7 +993,8 @@ def dynamic_path(dev, card, gen):
               f"{walls[name + ' eager']!r} ms/iter ({DYN_CGN_ITERS} "
               f"iterations; runs {wall!r}); card {card}")
     return dict(A=A, ops=ops, launches=launches, max_abs=max_abs,
-                solves=solves, walls=walls, iters=iters, nt=nt, bv=bv,
+                solves=solves, walls=walls, iters=iters, tsqr=tsqr,
+                nt=nt, bv=bv,
                 x_true=x_true, dims=(nx, ny, nt), AA=AA, B=B, delta=delta,
                 angles=angles)
 
@@ -3587,6 +3607,89 @@ def phase13(dev, card):
     return total
 
 
+# Phase 14: the tall-skinny QR of MMGKS's panels at the dynamic cell's
+# shapes (dyn128x33, float32): the data panel, 71,610 rows and k + 2 <= 25
+# columns, unweighted (wf is applied before, as solvers/mmgks.py does), and
+# for the weighted form's sake weighted too; CenteredSpaceTimeDerivative's
+# 1,622,016 rows at k <= 23, weighted. Gates: float32 on these Gaussian
+# panels, 2e-5 of the float64 numbers (tests/test_torch_cuda.py TSQR_TOL).
+TSQR_CASES = ((71610, 25, False), (71610, 25, True), (1622016, 23, True))
+TSQR_GATE = 2e-5
+
+
+def phase14(dev, card, launches):
+    """``tsqr_geqrf`` (``sparse/tall_qr.py``) at TSQR_CASES: R^T R against
+    the float64 Gram matrix, R against LAPACK's float64 R up to row signs
+    and against the plain version on the card, the same bits twice, one
+    launch a call; then its device ms beside the bound (one read of the
+    panel and its weights against 2 m k^2 float32 operations), the plain
+    version's wall (CUDA events) and the library's device ms
+    (``torch.linalg.qr(mode="r")`` of the weighted panel, cuSOLVER).
+    ``launches``: phase [7]'s counts per solve. Returns the kernel's entry
+    for the ``kernels`` line."""
+    import torch
+    from trips_tpu_torch.sparse import tall_qr
+
+    t0 = time.perf_counter()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    shapes, worst = {}, 0.0
+    for m, k, weighted in TSQR_CASES:
+        form = "weighted" if weighted else "unweighted"
+        g = torch.Generator(device=dev).manual_seed(m + k)
+        x = torch.randn(m, k, generator=g, device=dev)
+        w = torch.rand(m, generator=g, device=dev) + 0.25 if weighted else None
+        tall_qr.reset_launch_counts()
+        R = tall_qr.tall_r(x, w)
+        check(torch.equal(R, tall_qr.tall_r(x, w)),
+              f"tsqr_geqrf {m}x{k} {form} differs from run to run")
+        check(tall_qr.launch_counts == {"tsqr_geqrf": 2, "qr_library": 0},
+              f"tsqr_geqrf {m}x{k} {form} launches {tall_qr.launch_counts}")
+        X = x.double() if w is None else x.double() * w.double()[:, None]
+        Rl = torch.linalg.qr(X, mode="r")[1]
+        Rd = R.double()
+        d = torch.sign(torch.diagonal(Rd) * torch.diagonal(Rl))
+        gap = rel(d[:, None] * Rd, Rl)
+        G = X.T @ X
+        gram = float((Rd.T @ Rd - G).norm() / G.norm())
+        Rp = tall_qr.tall_r_ref(x, w, n_sm=sms)
+        plain_gap = rel(R, Rp)
+        worst = max(worst, float((R - Rp).abs().max()))
+        check(max(gap, gram, plain_gap) <= TSQR_GATE,
+              f"tsqr_geqrf {m}x{k} {form}: R {gap!r}, Gram {gram!r}, plain "
+              f"{plain_gap!r}")
+        del X, G
+        ms, source = checked_ms(lambda: tall_qr.tall_r(x, w), 20)
+        plain = cuda_ms(lambda: tall_qr.tall_r_ref(x, w, n_sm=sms), 2)
+        Xw = x if w is None else x * w[:, None]
+        library, _ = checked_ms(lambda: torch.linalg.qr(Xw, mode="r"), 5)
+        bnd = bound(nbytes(x, w, R), 2 * m * k * k, F32_FLOPS)
+        p = tall_qr.plan(m, k, 4, sms)
+        shapes[f"{m}x{k} {form}"] = dict(
+            ms=ms, source=source, plain_ms=plain, library_ms=library,
+            bound_ms=bnd[0], bound_by=bnd[1], rel_err=gap, gram_err=gram,
+            plain_rel_err=plain_gap, plan=p._asdict())
+        print(f"[14] tsqr_geqrf {m}x{k} float32 {form}, {p}: {ms!r} ms "
+              f"({source}), bound {bnd[0]!r} ms ({bnd[1]}), plain "
+              f"{plain!r} ms, library torch.linalg.qr(mode='r') "
+              f"{library!r} ms; R against LAPACK float64 {gap!r}, Gram "
+              f"{gram!r}, against the plain version {plain_gap!r}; card "
+              f"{card}")
+        del x, w, Xw, R, Rp
+    print(f"[14] took {time.perf_counter() - t0:.1f} s")
+    main = shapes["1622016x23 weighted"]
+    return {"name": "tsqr_geqrf", "route": "cuda",
+            "source": "trips_tpu_torch/csrc/tsqr.cu",
+            "replaces": "none: jnp.linalg.qr at "
+                        "trips_tpu/solvers/mmgks.py:91-92 (cuSOLVER geqr2 "
+                        "on this card)",
+            "launches": {name: n for name, n in launches.items()
+                         if "MMGKS" in name},
+            "max_abs_err": worst, "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "shapes": shapes}
+
+
 def main():
     import torch
 
@@ -4510,6 +4613,8 @@ def main():
         k = entry["name"]
         if k in twins:
             entry["twin_launches"] = twins[k]
+    # ---- 14. the tall-skinny QR of MMGKS's panels ------------------------
+    kernels.append(phase14(dev, card, dyn["tsqr"]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

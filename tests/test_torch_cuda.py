@@ -1518,3 +1518,187 @@ def test_trace_spans_of_replayed_loops(cuda, demo64, tmp_path):
                if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     window = max(b for _, b in kernels) - min(a for a, _ in kernels)
     assert 0 < telemetry.device_busy_ms(prof) * 1e3 <= window
+
+
+# ---- the tall-skinny QR of MMGKS's panels (csrc/tsqr.cu) -------------------
+TSQR_M = [1, 100, 71610, 1622016]
+TSQR_K = [1, 4, 23, 25, 64, 128]
+# float32: the kernel and cuSOLVER's float32 QR both within 1e-6 or so of
+# the float64 R on these well-conditioned Gaussian panels; 2e-5 leaves
+# room for 1.6M-row sums. float64: backward stable Householder, 1e-12.
+TSQR_TOL = {torch.float32: 2e-5, torch.float64: 1e-12}
+
+
+def _tsqr_gaps(R, X):
+    """(Gram gap, signed gap or None) of R against the float64 panel X:
+    ||R^T R - X^T X|| / ||X^T X||, and, where the panel has at least 4k
+    rows (so that R's rows are well determined), ||D R - R_l|| / ||R_l||
+    for LAPACK's R_l (float64) with D the signs matching the diagonals."""
+    R, (m, k) = R.double(), X.shape
+    G = X.T @ X
+    gram = float((R.T @ R - G).norm() / G.norm())
+    if m < 4 * k:
+        return gram, None
+    Rl = torch.linalg.qr(X, mode="r")[1]
+    d = torch.sign(torch.diagonal(R) * torch.diagonal(Rl))
+    return gram, float((d[:, None] * R - Rl).norm() / Rl.norm())
+
+
+@pytest.mark.parametrize("k", TSQR_K)
+@pytest.mark.parametrize("m", TSQR_M)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_tall_r_kernel(cuda, dtype, m, k):
+    """``tsqr_geqrf`` weighted and unweighted against LAPACK's float64 QR
+    (R^T R, and R up to row signs), weighted against the plain version on
+    the card (the same plan; skipped where the plain version's k steps a
+    tile would take seconds: 1.6M rows at k >= 64); one launch a call,
+    bitwise repeatable; zeros below the diagonal."""
+    from trips_tpu_torch.sparse import tall_qr
+
+    g = torch.Generator(device=cuda).manual_seed(m + k)
+    x = torch.randn(m, k, generator=g, device=cuda, dtype=dtype)
+    w = torch.rand(m, generator=g, device=cuda, dtype=dtype) + 0.25
+    tol = TSQR_TOL[dtype]
+    before = dict(tall_qr.launch_counts)
+    R = tall_qr.tall_r(x, w)
+    assert tall_qr.launch_counts["tsqr_geqrf"] == before["tsqr_geqrf"] + 1
+    assert tall_qr.launch_counts["qr_library"] == before["qr_library"]
+    assert R.shape == (k, k) and R.dtype == dtype and R.device.type == "cuda"
+    assert torch.equal(R, R.triu())
+    assert torch.equal(R, tall_qr.tall_r(x, w))
+    for Rk, X in ((R, x.double() * w.double()[:, None]),
+                  (tall_qr.tall_r(x), x.double())):
+        gram, signed = _tsqr_gaps(Rk, X)
+        assert gram <= tol and (signed is None or signed <= tol), \
+            (gram, signed)
+    if m < 10 ** 6 or k <= 25:
+        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        Rp = tall_qr.tall_r_ref(x, w, n_sm=sms)
+        gram = float((R.double().T @ R.double() - Rp.double().T
+                      @ Rp.double()).norm() / (Rp.double().T
+                                               @ Rp.double()).norm())
+        assert gram <= tol
+        if m >= 4 * k:
+            assert _rel(R, Rp) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("col", [0, 3, 24])
+def test_tall_r_zero_column(cuda, dtype, col):
+    """A zero column: tau 0 (LAPACK larfg), R's column exactly zero."""
+    from trips_tpu_torch.sparse.tall_qr import tall_r
+
+    g = torch.Generator(device=cuda).manual_seed(col)
+    x = torch.randn(71610, 25, generator=g, device=cuda, dtype=dtype)
+    x[:, col] = 0
+    w = torch.rand(71610, generator=g, device=cuda, dtype=dtype) + 0.25
+    R = tall_r(x, w)
+    assert torch.all(R[:, col] == 0)
+    gram, signed = _tsqr_gaps(R, x.double() * w.double()[:, None])
+    assert gram <= TSQR_TOL[dtype]
+
+
+def test_tall_r_wide_panel_takes_the_library(cuda):
+    """Wider than 128 columns: torch.linalg.qr, counted as such."""
+    from trips_tpu_torch.sparse import tall_qr
+
+    x = torch.randn(3000, 130, device=cuda, dtype=torch.float64)
+    before = dict(tall_qr.launch_counts)
+    R = tall_qr.tall_r(x)
+    assert tall_qr.launch_counts["qr_library"] == before["qr_library"] + 1
+    assert tall_qr.launch_counts["tsqr_geqrf"] == before["tsqr_geqrf"]
+    gram, signed = _tsqr_gaps(R, x)
+    assert gram <= 1e-12 and signed <= 1e-12
+
+
+def _mmgks_dyn(problem, dev, n_iter, dtype, regparam):
+    from trips_tpu_torch.operators import CenteredSpaceTimeDerivative
+    from trips_tpu_torch.solvers import MMGKS
+    from trips_tpu_torch.sparse import CsrOperator
+
+    A, b, AA, B, nx, ny, nt, delta, x, al = problem
+    op = (CsrOperator.from_scipy(A, dtype=np.float64, device=dev)
+          if dtype == torch.float64 else _dyn(problem, "flat", None, dev))
+    L = CenteredSpaceTimeDerivative(nx, ny, nt, device=dev)
+    bt = torch.as_tensor(np.asarray(b).reshape(-1), dtype=dtype, device=dev)
+    return MMGKS(op, bt, L, pnorm=2, qnorm=1, projection_dim=4,
+                 n_iter=n_iter, regparam=regparam, delta=float(delta),
+                 isoTV="isoTV", prob_dims=(nx, ny, nt))
+
+
+def test_mmgks_iteration_launches_tsqr(cuda, dynamic32):
+    """Each host MMGKS iteration: two ``tsqr_geqrf`` launches (the data
+    panel with its two data columns, the weighted regularizer panel), no
+    library QR."""
+    from trips_tpu_torch.sparse import tall_qr
+
+    for n_iter in (1, 3):
+        tall_qr.reset_launch_counts()
+        _mmgks_dyn(dynamic32, cuda, n_iter, torch.float32, "gcv")
+        assert tall_qr.launch_counts == {"tsqr_geqrf": 2 * n_iter,
+                                         "qr_library": 0}
+
+
+def test_mmgks_float64_matches_cpu(cuda, dynamic32):
+    """Host MMGKS (isotropic TV, the discrepancy principle) in float64 over
+    the CSR operator on the card (``tsqr_geqrf``) and on the CPU (the
+    plain version): every iterate and every lambda within 1e-8. DP's root
+    is well conditioned (two CPU runs in another rounding order: 2e-15);
+    GCV's case is the next test."""
+    out = {dev: _mmgks_dyn(dynamic32, dev, 8, torch.float64, "dp")
+           for dev in (cuda, "cpu")}
+    (xc, ic), (xh, ih) = out[cuda], out["cpu"]
+    assert _rel(xc.cpu(), xh) <= 1e-8
+    assert len(ic["xHistory"]) == len(ih["xHistory"]) == 8
+    for a, b in zip(ic["xHistory"], ih["xHistory"]):
+        assert _rel(a.cpu(), b) <= 1e-8
+    lc, lh = (np.asarray(i["regParam_history"]) for i in (ic, ih))
+    assert lh[-1] > 0
+    np.testing.assert_allclose(lc, lh, rtol=1e-8, atol=0)
+
+
+# GCV on dynamic32 in float64 (8 iterations): lambda settles in GCV's flat
+# bottom (1e-7..1e-6 after the first iterations), where two CPU runs of the
+# same arithmetic in another rounding order (b scaled by 1 +- 1e-15..5e-14,
+# or the leaves of a plan for 1 or 2 SMs) choose lambdas up to 3.4x apart,
+# their iterates part by up to 1.1e-8, and each run's lambda scores within
+# 2.0e-7 of the other's minimum on the other's projected problem. The card
+# is held to ten times those readings.
+GCV_X_RTOL, GCV_SCORE_RTOL = 1e-7, 2e-6
+
+
+def test_mmgks_float64_gcv_matches_cpu(cuda, dynamic32, monkeypatch):
+    """Host MMGKS with GCV in float64 on the card and on the CPU: every
+    iterate within GCV_X_RTOL; at each iteration the card's lambda scores,
+    on the CPU run's projected problem, within GCV_SCORE_RTOL of the
+    CPU's lambda (the GCV function is flat there, so lambda itself is not
+    held)."""
+    import trips_tpu_torch.solvers.mmgks as mm
+    from trips_tpu_torch.regparam.gcv import _gcv_terms
+
+    select, seen = mm._select_lambda, []
+
+    def recorded(regparam, R_A, R_L, bproj, *rest):
+        seen.append((R_A.copy(), R_L.copy(), np.asarray(bproj).copy()))
+        return select(regparam, R_A, R_L, bproj, *rest)
+
+    monkeypatch.setattr(mm, "_select_lambda", recorded)
+    out = {}
+    for dev in (cuda, "cpu"):
+        seen.clear()
+        out[dev] = _mmgks_dyn(dynamic32, dev, 8, torch.float64, "gcv")
+    (xc, ic), (xh, ih) = out[cuda], out["cpu"]
+    assert len(ic["xHistory"]) == len(ih["xHistory"]) == len(seen) == 8
+    assert _rel(xc.cpu(), xh) <= GCV_X_RTOL
+    for a, b in zip(ic["xHistory"], ih["xHistory"]):
+        assert _rel(a.cpu(), b) <= GCV_X_RTOL
+
+    def score(lam, R_A, R_L, bproj):
+        num, trace = _gcv_terms(lam, R_A, R_L, bproj.reshape(-1, 1))
+        return num / (R_A.shape[0] - trace) ** 2
+
+    for lc, lh, problem in zip(ic["regParam_history"],
+                               ih["regParam_history"], seen):
+        assert lc > 0 and lh > 0
+        assert abs(score(lc, *problem) / score(lh, *problem) - 1) \
+            <= GCV_SCORE_RTOL, (lc, lh)

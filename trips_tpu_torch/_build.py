@@ -25,7 +25,7 @@ _SRC = _PKG / "csrc"
 _OUT = _PKG / "_build"
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # symbol -> argtypes; every entry point returns a CUDA error code (int)
 ENTRY_POINTS = {
     # K1-K3: op, kind, nb, 5 pointer arrays (W, S, Pm, scales, aidx), 6 int
@@ -43,6 +43,9 @@ ENTRY_POINTS = {
     # kind, R, G, P, U, out, na, K, N, nsplit, chunk, stream
     "trips_shear_ata": [_I] + [_P] * 5 + [_I] * 5 + [_P],
     "trips_shear_ata_k_tile": [],
+    # kind, X, w, R, work, m, k, tile_rows, warps, blocks, rows_per_block,
+    # stream
+    "trips_tsqr": [_I] + [_P] * 4 + [_L] + [_I] * 4 + [_L, _P],
 }
 
 _lib = None

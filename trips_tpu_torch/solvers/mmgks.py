@@ -4,9 +4,10 @@ Counterpart of ``trips_tpu/solvers/mmgks.py`` (reference:
 ``trips/solvers/MMGKS.py:28-137``). Per iteration: fidelity weights
 wf = (v^2 + eps^2)^(p/2-1) with v = A x - b; regularization weights wr by
 mode — smoothed-Holder (default), isotropic TV ('isoTV') or group sparsity
-('GS') for dynamic (nx, ny, nt) problems; QR of the weighted panels
-(wf * AV), (wr * LV); lam selection; stacked least squares; basis
-expansion with the reweighted normal-equations residual (2x reorth).
+('GS') for dynamic (nx, ny, nt) problems; the R factors of the weighted
+panels (wf * AV with the data columns, wr * LV; ``sparse.tall_qr``, no Q);
+lam selection; stacked least squares; basis expansion with the reweighted
+normal-equations residual (2x reorth).
 
 The m/n-sized work (weights, panels, QR, residual) runs on the operator's
 device, lam selection and the k x k solve on the host. In 'GS' mode the
@@ -22,6 +23,7 @@ from ..krylov import golub_kahan
 from ..operators.derivatives import FirstDerivative2D
 from ..operators.weights import (gs_weights, iso_tv_weights,
                                  smoothed_holder_weights)
+from ..sparse.tall_qr import tall_r
 from ..utils import telemetry
 from ._common import as_op, build_info, host, like, stacked_lstsq, vec
 from .gks import _select_lambda
@@ -86,17 +88,25 @@ def MMGKS(A, b, L, pnorm=2, qnorm=1, projection_dim=3, n_iter=5,
         else:
             wr = smoothed_holder_weights(u, epsilon, qnorm)
 
-        QA, RAj = torch.linalg.qr(AV * wf[:, None], mode="reduced")
-        QL, RLj = torch.linalg.qr(LV * wr[:, None], mode="reduced")
-        R_A, R_L = host(RAj), host(RLj)
-
-        wb = wf * b
-        bproj_dev = QA.T @ wb
-        bproj = host(bproj_dev)
-        out_norm2 = float(torch.linalg.norm(wb - QA @ bproj_dev) ** 2)
+        # R only, no Q: R of [wf*AV | wf*b | b] holds R_A, Q_A^T (wf b),
+        # the weighted data's energy outside range(Q_A) and Q_A^T b, each
+        # row up to one sign that every rule below is blind to, as it is
+        # to a left orthogonal factor of R_L; both R factors in one read
+        k = V.shape[1]
+        R_buf = torch.empty((k + 2) ** 2 + k * k, dtype=b.dtype,
+                            device=b.device)
+        tall_r(torch.cat([AV * wf[:, None], (wf * b)[:, None], b[:, None]],
+                         dim=1), out=R_buf[:(k + 2) ** 2].view(k + 2, k + 2))
+        tall_r(LV, wr, out=R_buf[(k + 2) ** 2:].view(k, k))
+        R_h = host(R_buf)
+        R_d = R_h[:(k + 2) ** 2].reshape(k + 2, k + 2)
+        ra, rl = min(b.shape[0], k), min(LV.shape[0], k)
+        R_A, R_L = R_d[:ra, :k], R_h[(k + 2) ** 2:].reshape(k, k)[:rl]
+        bproj = R_d[:ra, k]
+        out_norm2 = float(R_d[k, k]) ** 2
         # the reference solves the projected system against Q_A^T b
         # (MMGKS.py:106); gcv and dp choose lam on the weighted data
-        bsolve = host(QA.T @ b)
+        bsolve = R_d[:ra, k + 1]
         with telemetry.span("mmgks.lambda"):  # lam and y on the host
             lam = _select_lambda(
                 regparam, R_A, R_L,
