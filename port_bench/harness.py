@@ -12,6 +12,9 @@ traffic mix, each found by name:
 - ``limits/<cell>.json``: each number compared and its limit;
 - ``metrics/<metric>.py``: one reader per per-layer metric.
 
+A new cell needs new files alone: those above, and its test data under
+``tests/`` (which no run reads).
+
 Traffic is a closed loop: one user reconstructs scan after scan on one
 geometry, cycling through a pool of noisy sinograms made on the device
 from the seed. A reconstruction's time runs from its call to its result
@@ -26,6 +29,7 @@ compared with the reference run on the same sinograms.
 """
 from __future__ import annotations
 
+import bisect
 import gc
 import importlib
 import json
@@ -77,6 +81,50 @@ class Run:
     window_s: float | None = None
     busy_s: float | None = None
     breakdown: dict | None = None
+    m: int | None = None                         # the operator's rows
+    # (name, ts us, end us, recon index) of each program span: every
+    # user_annotation but the recons', the index None outside them
+    annotations: list = field(default_factory=list)
+    # per recon: [(ts us, end us)] in which no operation ran on the device
+    idle: list = field(default_factory=list)
+
+    def idle_ms_per_recon(self, name):
+        """Device-idle milliseconds per traced reconstruction under the
+        program span ``name``: in each reconstruction, the union of its
+        annotations intersected with the idle intervals. None where no
+        such span was traced."""
+        if not self.idle or not any(a[0] == name for a in self.annotations):
+            return None
+        us = 0.0
+        for i, idle in enumerate(self.idle):
+            under = union((a, b) for n, a, b, r in self.annotations
+                          if n == name and r == i)
+            us += overlap(under, idle)
+        return us / 1e3 / len(self.idle)
+
+
+def union(intervals):
+    """Sorted disjoint [a, b] covering the given intervals."""
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def overlap(xs, ys):
+    """Length of the intersection of two sorted disjoint interval lists."""
+    total, i, j = 0.0, 0, 0
+    while i < len(xs) and j < len(ys):
+        a, b = max(xs[i][0], ys[j][0]), min(xs[i][1], ys[j][1])
+        total += max(0.0, b - a)
+        if xs[i][1] < ys[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
 
 
 def load_cell(workload, overrides=None):
@@ -136,8 +184,9 @@ def short_name(key):
 
 
 def read_trace(path, run):
-    """Fill ``run``'s kernels, busy and window seconds and breakdown from
-    a Chrome trace of the traced sub-window."""
+    """Fill ``run``'s kernels, busy and window seconds, breakdown, program
+    spans and idle intervals from a Chrome trace of the traced
+    sub-window."""
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     spans = [e for e in events if e.get("name") == RECON and "dur" in e]
@@ -149,12 +198,7 @@ def read_trace(path, run):
                  for e in events if e.get("cat") in DEVICE_CATS
                  and "dur" in e and e["ts"] < hi and e["ts"] + e["dur"] > lo)
     run.kernels = [(n, a, b - a) for a, b, n in dev]
-    merged = []
-    for a, b, _ in dev:
-        if merged and a <= merged[-1][1]:
-            merged[-1][1] = max(merged[-1][1], b)
-        else:
-            merged.append([a, b])
+    merged = union((a, b) for a, b, _ in dev)
     busy = sum(b - a for a, b in merged)
     run.window_s, run.busy_s = (hi - lo) / 1e6, busy / 1e6
     by_op = {}
@@ -183,6 +227,26 @@ def read_trace(path, run):
     gaps = sorted(by_gap.items(), key=lambda kv: -kv[1])[:10]
     run.breakdown = {"device_ops": [list(kv) for kv in top],
                      "idle_gaps": [list(kv) for kv in gaps]}
+    # each reconstruction's idle intervals, and the program spans in it
+    recons = sorted((e["ts"], e["ts"] + e["dur"]) for e in spans
+                    if e.get("cat") == "user_annotation")
+    run.idle = []
+    for a, b in recons:
+        inside = [[max(x, a), min(y, b)] for x, y in merged
+                  if x < b and y > a]
+        edges = [a] + [x for xy in inside for x in xy] + [b]
+        run.idle.append([(x, y) for x, y in zip(edges[::2], edges[1::2])
+                         if y > x])
+    firsts = [a for a, _ in recons]
+
+    def recon_of(ts):
+        i = bisect.bisect_right(firsts, ts) - 1
+        return i if i >= 0 and ts <= recons[i][1] else None
+
+    run.annotations = [(e["name"], e["ts"], e["ts"] + e["dur"],
+                        recon_of(e["ts"])) for e in events
+                       if e.get("cat") == "user_annotation" and "dur" in e
+                       and e["name"] != RECON]
 
 
 def traced(solve, pool, n, run, dev):
@@ -269,6 +333,18 @@ def compare(cell, kind, entry, sample, bs):
             for k, v in numbers.items()}
 
 
+def finite_of(out):
+    """Per output tensor, a flag on its device: all of it finite."""
+    import torch
+
+    return [torch.isfinite(v).all() for v in out.values()]
+
+
+def copy_of(out):
+    """A copy of each output tensor, detached."""
+    return {key: v.detach().clone() for key, v in out.items()}
+
+
 def run_cell(workload, seed, seconds, trace, t0, device="cuda",
              overrides=None, dtype=None):
     """Run the cell once; returns the result line's object. ``dtype``
@@ -285,11 +361,15 @@ def run_cell(workload, seed, seconds, trace, t0, device="cuda",
     dtype = dtype or cfg["dtype"]
     op, nnz, solve, build_s = program(cell, kind, entry, dev, dtype)
     run = Run(traffic["params"], nnz, op.shape[1], VALUE_BYTES[dtype],
-              spans={"build": build_s})
+              spans={"build": build_s}, m=op.shape[0])
     pool = make_pool(b_true, cfg["noise_level"], traffic["pool"], seed,
                      dev)
     rng = np.random.default_rng(seed)
-    solve(pool[0])
+    # the warm reconstruction, and on its output the window's own reads,
+    # so that no kernel of theirs loads inside the window
+    warm = solve(pool[0])
+    finite_of(warm), copy_of(warm)
+    del warm
     _sync(dev)
     setup_s = time.perf_counter() - t0
 
@@ -304,10 +384,10 @@ def run_cell(workload, seed, seconds, trace, t0, device="cuda",
             break
         i = len(walls)
         out = solve(pool[i % len(pool)])
-        finite.append([torch.isfinite(v).all() for v in out.values()])
+        finite.append(finite_of(out))
         j = i if i < k else int(rng.integers(i + 1))
         if j < k:
-            o = {key: v.detach().clone() for key, v in out.items()}
+            o = copy_of(out)
             if j == len(kept):
                 kept.append(o)
                 rows.append(i % len(pool))

@@ -1,8 +1,9 @@
 """The harness on the CPU at tiny sizes: every cell's result line, the
 per-layer readers, the comparison's faults, and what the runs import."""
 import ast
-import importlib
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -12,25 +13,19 @@ import numpy as np
 import pytest
 
 from port_bench import harness
-from port_bench.metrics import idle_share, k1_roofline
+from port_bench.metrics import (idle_share, k1_roofline, k2_roofline,
+                                k3_roofline)
+from port_bench.tests import celldata
 
 REPO = Path(__file__).resolve().parents[2]
-SPEC = json.loads((REPO / "BENCHMARK.json").read_text())
-WORKLOADS = [w["name"] for w in SPEC["workloads"]]
-TINY_CONFIG = {
-    "tomo256x60": {"nx": 32, "det_count": 45, "source_origin": 96,
-                   "origin_det": 32, "views": 12},
-    "dyn128x33": {"nx": 32, "det_count": 45, "source_origin": 96,
-                  "origin_det": 32, "nt": 4},
-}
-TINY_PARAMS = {"cgls_normal": {"max_iter": 5}, "mmgks_isotv": {"n_iter": 3},
-               "fused_gks_gcv": {"n_iter": 4}}
+WORKLOADS = list(celldata.CELLS)
 SEED = 2**31 + 17
 
 
 def tiny(workload):
-    config, traffic = workload.split(".")
-    return {"config": TINY_CONFIG[config], "params": TINY_PARAMS[traffic],
+    w = celldata.CELLS[workload]
+    return {"config": celldata.config(w["config"])["tiny"],
+            "params": celldata.traffic(w["traffic"])["tiny"],
             "traffic": {"trace_recons": 1, "checked": 1}}
 
 
@@ -60,77 +55,14 @@ def test_port_bench_result_line(workload, trace):
     assert json.loads(json.dumps(r)) == r
 
 
-def _perturbed(x):
-    x = x.clone()
-    x[x.numel() // 2] += 0.1 * x.norm()
-    return x
-
-
-def faults(workload):
-    """(name, module, attribute, replacement factory) of each fault the
-    cell can have, planted where the timed path produces it."""
-    traffic = workload.split(".")[1]
-    if traffic == "cgls_normal":
-        from trips_tpu_torch import krylov
-
-        cgls = importlib.import_module("trips_tpu_torch.krylov.cgls")
-
-        init, solve = cgls._cgn_init, krylov.cgls_normal
-
-        def half(A, b, x0):
-            b = b.clone()
-            b[b.numel() // 2:] = 0
-            return init(A, b, x0)
-
-        def altered(*a, **k):
-            x, n = solve(*a, **k)
-            return _perturbed(x), n
-
-        return [("unchanged step", cgls, "_cgn_step", lambda A, tol, s: s),
-                ("half the data", cgls, "_cgn_init", half),
-                ("answer altered", krylov, "cgls_normal", altered)]
-    if traffic == "mmgks_isotv":
-        from trips_tpu_torch import solvers
-
-        module, name = solvers, "MMGKS"
-    else:
-        from trips_tpu_torch.solvers import fused
-
-        module, name = fused, "fused_gks"
-    orig = getattr(module, name)
-
-    def unchanged(A, b, L, **k):  # every step after the first a no-op
-        return orig(A, b, L, **{**k, "n_iter": 1})
-
-    def half(A, b, L, **k):
-        b = b.clone()
-        b[b.numel() // 2:] = 0
-        return orig(A, b, L, **k)
-
-    def altered(*a, **k):
-        x, *rest = orig(*a, **k)
-        return (_perturbed(x), *rest)
-
-    return [("unchanged step", module, name, unchanged),
-            ("half the data", module, name, half),
-            ("answer altered", module, name, altered)]
-
-
 @pytest.mark.parametrize("workload", WORKLOADS)
 def test_port_bench_faults_fail(workload, monkeypatch):
-    for label, module, name, fake in faults(workload):
+    entry = harness.load_cell(workload).traffic["entry"]
+    for label, module, name, fake in celldata.faults(entry):
         with monkeypatch.context() as m:
             m.setattr(module, name, fake)
             r = run(workload)
         assert r["correct"] is False, (label, r["checks"])
-
-
-SMALL_CONFIG = {
-    "tomo256x60": {"nx": 64, "det_count": 90, "source_origin": 192,
-                   "origin_det": 64, "views": 30},
-    "dyn128x33": {"nx": 32, "det_count": 45, "source_origin": 96,
-                  "origin_det": 32, "nt": 4},
-}
 
 
 @pytest.mark.parametrize("workload", WORKLOADS)
@@ -139,7 +71,8 @@ def test_port_bench_control_fails(workload):
     precision below the configuration's float32), fails the cell's limits
     at a small size with the cell's own iteration counts, where the
     float32 pack passes them."""
-    small = {"config": SMALL_CONFIG[workload.split(".")[0]],
+    config = celldata.CELLS[workload]["config"]
+    small = {"config": celldata.config(config)["small"],
              "traffic": {"checked": 1}}
     got = {dtype: harness.run_cell(workload, SEED, 0.05, False,
                                    time.perf_counter(), device="cpu",
@@ -244,3 +177,108 @@ def test_port_bench_card_run(workload, card):
         cwd=REPO, capture_output=True, text=True, timeout=600)
     assert out.returncode == 0, out.stderr[-2000:]
     assert json.loads(out.stdout.strip().splitlines()[-1])["correct"]
+
+
+def test_port_bench_read_trace_keeps_its_readings(tmp_path):
+    """On a fixed trace, ``read_trace`` gives the kernels, busy and window
+    seconds and breakdown that it gave before it read program spans, bit
+    for bit (``data/fixed_trace_read.json``)."""
+    data = Path(__file__).resolve().parent / "data"
+    want = json.loads((data / "fixed_trace_read.json").read_text())
+    r = harness.Run({}, 1, 1, 4)
+    harness.read_trace(data / "fixed_trace.json", r)
+    assert [list(k) for k in r.kernels] == want["kernels"]
+    assert (r.busy_s, r.window_s) == (want["busy_s"], want["window_s"])
+    assert json.loads(json.dumps(r.breakdown)) == want["breakdown"]
+    # the spans: three reconstructions (the device's copy of the recon
+    # annotation is not one), each span inside one of them
+    assert len(r.idle) == 3
+    assert {n for n, *_ in r.annotations} == {
+        "solve.cgls", "loop.cgls", "loop.capture", "loop.replay"}
+    assert all(i in (0, 1, 2) for *_, i in r.annotations)
+    idle_ms = sum(b - a for rec in r.idle for a, b in rec) / 1e3 / 3
+    assert 0 < r.idle_ms_per_recon("loop.capture") <= idle_ms
+    assert r.idle_ms_per_recon("solve.cgls") <= idle_ms
+    assert r.idle_ms_per_recon("mmgks.lambda") is None
+
+
+def test_port_bench_k2_k3_rooflines():
+    """K2 reads ``fwd_kernel`` alone; K3 reads ``adj_kernel`` and the
+    ``fixed_to_float`` after it, not the one after K1's ``ata_kernel``."""
+    nnz, n, m = 1000, 64, 90
+    assert k2_roofline.least_bytes(nnz, n, m, 4) == nnz * 4 + (n + m) * 4
+    run_ = harness.Run({}, nnz, n, 4, m=m,
+                       kernels=[("void fwd_kernel<float>(...)", 0.0, 2.0),
+                                ("other", 2.0, 1.0),
+                                ("adj_kernel", 3.0, 3.0),
+                                ("elementwise", 6.0, 1.0),
+                                ("fixed_to_float(Args)", 7.0, 1.0),
+                                ("ata_kernel", 8.0, 4.0),
+                                ("fixed_to_float(Args)", 12.0, 7.0),
+                                ("fwd_kernel", 19.0, 4.0),
+                                ("adj_kernel", 23.0, 5.0),
+                                ("fixed_to_float(Args)", 28.0, 1.0)])
+    bound_us = (nnz * 4 + (n + m) * 4) / k2_roofline.HBM_BYTES_PER_S * 1e6
+    assert k2_roofline.read(run_) == pytest.approx(100 * bound_us / 3.0)
+    assert k3_roofline.read(run_) == pytest.approx(100 * bound_us / 5.0)
+    assert k2_roofline.read(harness.Run({}, nnz, n, 4)) is None
+    for reader in (k2_roofline, k3_roofline):
+        assert reader.read(harness.Run({}, nnz, n, 4, m=m)) is None
+
+
+@pytest.mark.parametrize("kind,path", [
+    ("config", "port_bench/tests/configs/nosuch.json"),
+    ("traffic", "port_bench/tests/traffic/nosuch.json"),
+    ("faults", "port_bench/tests/faults/nosuch.py")])
+def test_port_bench_missing_test_data_names_the_file(kind, path):
+    with pytest.raises(celldata.MissingTestData, match=re.escape(path)):
+        getattr(celldata, kind)("nosuch")
+
+
+NEW_CELL = "newcfg.newmix"
+
+
+def test_port_bench_takes_a_cell_from_new_files(tmp_path):
+    """A cell made of new files alone (a configuration, a traffic mix, an
+    entry, its limits, their test data, and entries appended to
+    ``BENCHMARK.json``), in a copy of the benchmark, passes the tests that
+    every cell runs: its result lines, faults, control and spans."""
+    root = tmp_path / "tree"
+    pb = root / "port_bench"
+    shutil.copytree(REPO / "port_bench", pb,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    (root / "trips_tpu_torch").symlink_to(REPO / "trips_tpu_torch")
+    # copies of tomo256x60.cgls_normal's files under new names, its entry
+    # and faults imported by a new entry of their own
+    copies = {"configs/newcfg.json": "configs/tomo256x60.json",
+              f"limits/{NEW_CELL}.json": "limits/tomo256x60.cgls_normal.json",
+              "tests/configs/newcfg.json": "tests/configs/tomo256x60.json",
+              "tests/traffic/newmix.json": "tests/traffic/cgls_normal.json"}
+    for new, old in copies.items():
+        (pb / new).write_text((pb / old).read_text())
+    mix = json.loads((pb / "traffic/cgls_normal.json").read_text())
+    (pb / "traffic/newmix.json").write_text(json.dumps({**mix,
+                                                        "entry": "newent"}))
+    (pb / "entries/newent.py").write_text(
+        "from .cgls_normal import check, program  # noqa: F401\n")
+    (pb / "tests/faults/newent.py").write_text(
+        "from .cgls_normal import faults  # noqa: F401\n")
+    spec = json.loads((REPO / "BENCHMARK.json").read_text())
+    spec["configs"].append({**spec["configs"][0], "name": "newcfg",
+                            "file": "port_bench/configs/newcfg.json"})
+    spec["workloads"].append({"name": NEW_CELL, "config": "newcfg",
+                              "traffic": "newmix", "chips": 1,
+                              "why": "a cell from new files"})
+    for m in spec["end_to_end"] + spec["per_layer"]:
+        if "tomo256x60.cgls_normal" in m.get("workloads", []):
+            m["workloads"].append(NEW_CELL)
+    (root / "BENCHMARK.json").write_text(json.dumps(spec))
+    out = subprocess.run(
+        [sys.executable, "-m", "pytest", "port_bench/tests", "-q",
+         "-p", "no:cacheprovider", "-k", "newcfg", "-rs"],
+        cwd=root, capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-2000:]
+    tail = out.stdout.strip().splitlines()[-1]
+    # two result lines, the faults, the control, the spans; the card
+    # test skips here
+    assert re.search(r"\b5 passed\b", tail), out.stdout[-3000:]
