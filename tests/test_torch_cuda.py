@@ -1293,6 +1293,45 @@ def test_loop_graph_bitwise_eager(cuda, dynamic32, name, monkeypatch):
         assert xg[1] == 11
 
 
+def test_shear_fused_ata_replayed_step(cuda, monkeypatch):
+    """``cgls_normal`` on ``ShearFanProjector(fused_ata=True)``, as the
+    benchmark's shear cell runs it, with ``TRIPS_TPU_SHEAR_ATA=0``: replayed,
+    x is the eager loop's to the bit; each step launches K4, K6 and K5 once
+    and no stage-B product (the one ``_mm`` of a solve is its initial
+    A^T b); the K4 and K5 plans (``shear.plan``) are made once per
+    operator, not per solve."""
+    from trips_tpu_torch.krylov import cgls_normal
+    from trips_tpu_torch.operators import fan_shear
+    from trips_tpu_torch.utils import telemetry
+
+    monkeypatch.setenv("TRIPS_TPU_SHEAR_ATA", "0")
+    op = ShearFanProjector(48, views=10, fused_ata=True, device=cuda)
+    assert op.capturable
+    g = torch.Generator(device=cuda).manual_seed(5)
+    b = torch.randn(op.shape[0], device=cuda, generator=g)
+    x0 = torch.zeros(op.shape[1], device=cuda)
+    products, mm = [], fan_shear._mm
+
+    def counted_mm(*a):
+        products.append(1)
+        return mm(*a)
+
+    monkeypatch.setattr(fan_shear, "_mm", counted_mm)
+    iters, plans = 19, []
+    for _ in range(2):
+        products.clear()
+        with telemetry.tracing() as tr:
+            (xg, _, sg), (xe, _, se) = _graph_and_eager(
+                lambda: cgls_normal(op, b, x0, iters))
+        plans.append(sum(s.name == "shear.plan" for s in tr.spans))
+        assert _same_bits(xg, xe) and xg[1] == iters
+        assert sg == se == {"shear_rotate": iters + 1,
+                            "gcontract_ata": iters + 1,
+                            "shear_rotate_adjoint": iters + 2}
+        assert len(products) == 2  # graph run and eager run
+    assert plans == [2, 0]
+
+
 def test_checkpointed_resume_graph_bitwise_eager(cuda):
     """``cgls_normal_checkpointed`` on the card, killed after its first
     chunk and resumed from the state it saved: the uninterrupted run's

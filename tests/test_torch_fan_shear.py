@@ -303,3 +303,51 @@ def test_wrappers_refuse_other_devices(ops):
     with pytest.raises(ValueError, match="CPU or CUDA"):
         sk.gcontract_ata(torch.empty(na, C, C, device=meta),
                          top.G.to(meta))
+
+
+@pytest.mark.parametrize("env", ["0", "1"])
+@pytest.mark.parametrize("fused", [True, False, None])
+def test_fused_ata_switch(fused, env, rng, monkeypatch):
+    """``fused_ata`` True runs K6 and False the product pair whatever
+    ``TRIPS_TPU_SHEAR_ATA`` says; None follows the variable. Both paths
+    agree in float64; ``from_numpy`` and ``to`` keep the switch."""
+    monkeypatch.setenv("TRIPS_TPU_SHEAR_ATA", env)
+    op = ShearFanProjector(16, views=5, dtype=torch.float64, device="cpu",
+                           fused_ata=fused)
+    calls = []
+
+    def ata(R, G):  # the K6 wrapper, counted (over the class's)
+        calls.append(1)
+        return sk.gcontract_ata(R, G)
+
+    op._ata = ata
+    x = torch.from_numpy(rng.standard_normal(op.shape[1]))
+    got = op.normal_matvec(x)
+    assert len(calls) == (env == "1" if fused is None else fused)
+    assert _rel(got, op.rmatvec(op.matvec(x))) <= 1e-12
+    assert op.to("cpu").fused_ata is fused
+    again = ShearFanProjector.from_numpy(
+        op.G.numpy(), op._kx.numpy(), op._fx.numpy(), op._ky.numpy(),
+        op._fy.numpy(), op._kq, op._C, op.nx, op.det_count, op._so, op._od,
+        op._dw, dtype=torch.float64, device="cpu", fused_ata=fused)
+    assert again.fused_ata is fused
+    assert torch.equal(again.normal_matvec(x), got)
+
+
+def test_fused_ata_refuses_other_values():
+    with pytest.raises(ValueError, match="fused_ata"):
+        ShearFanProjector(16, views=5, device="cpu", fused_ata="1")
+
+
+def test_shear_g_span():
+    """Building G is the span ``shear.g`` under ``tracing()``; the CPU
+    wrappers make no K4/K5 plan, so no ``shear.plan``."""
+    from trips_tpu_torch.utils import telemetry
+
+    with telemetry.tracing() as tr:
+        op = ShearFanProjector(16, views=5, device="cpu", fused_ata=True)
+        op.normal_matvec(torch.zeros(op.shape[1]))
+    names = [s.name for s in tr.spans]
+    assert names.count("shear.g") == 1 and "shear.plan" not in names
+    g = tr.spans[names.index("shear.g")]
+    assert g.end_ns > g.start_ns

@@ -15,10 +15,12 @@ B. **Fan contraction**: in that frame the geometry is the same for every
    2-tap hat weights at the ray/row crossings times the ray's step length.
 
 The adjoint runs the transposed product and the exact transpose of the
-rotation (K5), so ``<Ax, y> == <x, A'y>`` to roundoff. With
-``TRIPS_TPU_SHEAR_ATA=1``, ``normal_matvec`` replaces the two stage-B
-products by the fused contraction K6 (``gcontract_ata``), as the JAX
-package does on a TPU; by default it is ``rmatvec(matvec(x))``.
+rotation (K5), so ``<Ax, y> == <x, A'y>`` to roundoff. ``normal_matvec``
+runs K4 -> K6 -> K5, the two stage-B products fused into one contraction
+(``gcontract_ata``), when the operator is built with ``fused_ata=True``,
+and ``rmatvec(matvec(x))`` with ``fused_ata=False``. The default, None,
+reads ``TRIPS_TPU_SHEAR_ATA`` at each call (``1``: fused), as the JAX
+package does on a TPU.
 
 The kernels' wrappers choose by device: on the CPU they run their plain
 PyTorch versions (which also take float64), on a CUDA card the kernels.
@@ -36,6 +38,7 @@ import torch
 
 from ..core.device import DEFAULT, resolve
 from ..core.linop import LinearOperator
+from ..utils import telemetry
 from .shear_kernels import gcontract_ata, shear_rotate, shear_rotate_adjoint
 
 
@@ -67,7 +70,9 @@ class ShearFanProjector(LinearOperator):
     ``dtype`` is the operator's working type (float32 on the card; float64
     only on the CPU). ``g_dtype`` is the storage type of ``G`` (float32 or
     bfloat16; the rotated canvases are rounded to it before stage B).
-    ``device``: the CUDA card unless "cpu" is asked for.
+    ``device``: the CUDA card unless "cpu" is asked for. ``fused_ata``:
+    True runs ``normal_matvec`` through K6, False through the two stage-B
+    products, None as ``TRIPS_TPU_SHEAR_ATA`` says at each call.
     """
 
     _rot = staticmethod(shear_rotate)             # K4
@@ -78,7 +83,8 @@ class ShearFanProjector(LinearOperator):
 
     def __init__(self, nx, angles=None, views=None, det_count=None,
                  det_width=None, source_origin=None, origin_det=None,
-                 ny=None, dtype=torch.float32, g_dtype=None, device=DEFAULT):
+                 ny=None, dtype=torch.float32, g_dtype=None, device=DEFAULT,
+                 fused_ata=None):
         ny = ny or nx
         if ny != nx:
             raise NotImplementedError("square grids only")
@@ -110,13 +116,14 @@ class ShearFanProjector(LinearOperator):
         sy = m_sh[:, None] * x_line[None, :]
         kx, ky = np.floor(sx).astype(np.int64), np.floor(sy).astype(np.int64)
         self._setup(nx, p, so, od, dw, C, k, kx, sx - kx, ky, sy - ky, dtype,
-                    g_dtype or dtype, device)
-        self.G = self._build_g()
+                    g_dtype or dtype, device, fused_ata)
+        with telemetry.span("shear.g"):
+            self.G = self._build_g()
 
     @classmethod
     def from_numpy(cls, G, kx, fx, ky, fy, kq, C, nx, det_count,
                    source_origin, origin_det, det_width, dtype=torch.float32,
-                   g_dtype=None, device=DEFAULT):
+                   g_dtype=None, device=DEFAULT, fused_ata=None):
         """The operator from another build's arrays (the JAX operator's
         ``G``, ``_kx``, ``_fx``, ``_ky``, ``_fy``, ``_kq``, ``_C`` and
         geometry, as NumPy): the same bytes in both packages. ``G`` comes as
@@ -125,13 +132,17 @@ class ShearFanProjector(LinearOperator):
         op._setup(nx, det_count, source_origin, origin_det, det_width, C,
                   np.asarray(kq), np.asarray(kx), np.asarray(fx),
                   np.asarray(ky), np.asarray(fy), dtype, g_dtype or dtype,
-                  device)
+                  device, fused_ata)
         op.G = torch.as_tensor(np.array(G), device=op.device).to(
             op.g_dtype).contiguous()
         return op
 
     def _setup(self, nx, p, so, od, dw, C, kq, kx, fx, ky, fy, dtype,
-               g_dtype, device):
+               g_dtype, device, fused_ata):
+        if fused_ata not in (None, True, False):
+            raise ValueError(f"fused_ata must be None, True or False, got "
+                             f"{fused_ata!r}")
+        self.fused_ata = fused_ata
         na = len(kq)
         self.nx = self.ny = int(nx)
         self.det_count = int(p)
@@ -231,10 +242,14 @@ class ShearFanProjector(LinearOperator):
         return xt.reshape(-1).to(y.dtype)
 
     def normal_matvec(self, x):
-        """x -> A^T A x. With ``TRIPS_TPU_SHEAR_ATA=1`` the fused
-        G-contraction K6 between the rotation and its adjoint (read at each
-        call, as the JAX package reads it); otherwise the product pair."""
-        if os.environ.get("TRIPS_TPU_SHEAR_ATA", "0") != "1":
+        """x -> A^T A x: the fused G-contraction K6 between the rotation
+        and its adjoint where ``fused_ata`` is True, or is None and
+        ``TRIPS_TPU_SHEAR_ATA=1`` (read at each call, as the JAX package
+        reads it); otherwise the product pair."""
+        fused = self.fused_ata
+        if fused is None:
+            fused = os.environ.get("TRIPS_TPU_SHEAR_ATA", "0") == "1"
+        if not fused:
             return self.rmatvec(self.matvec(x))
         R = self._rotate(x.reshape(self.ny, self.nx).to(self.dtype))
         Radj = self._ata(R, self.G).to(self.g_dtype)

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from ..core.loop import counted
+from ..utils import telemetry
 
 # a replayed CUDA graph of a loop step counts its launches per replay
 # (core/loop.py)
@@ -286,17 +287,19 @@ def clear_plans():
 
 def _device_plan(kernel, itemsize, kx, ky, kq, C):
     """``rotate_plan`` for these shift tensors under ``PLANS``, its arrays on
-    their device; made once per shift set (one host read of the shifts)."""
+    their device; made once per shift set (one host read of the shifts),
+    under the span ``shear.plan``."""
     key = (kernel, itemsize, id(kx), id(ky), id(kq), C, kx.device)
     hit = _MADE.get(key)
     if hit is not None and all(r() is t for r, t in zip(hit[0],
                                                         (kx, ky, kq))):
         return hit[1]
     cfg = PLANS[kernel][itemsize]
-    pl = rotate_plan(kernel, kx.cpu().numpy(), ky.cpu().numpy(),
-                     kq.cpu().numpy(), C, cfg["tile"], cfg.get("chunk"))
-    pl = {k: torch.from_numpy(v).to(kx.device)
-          if isinstance(v, np.ndarray) else v for k, v in pl.items()}
+    with telemetry.span("shear.plan"):
+        pl = rotate_plan(kernel, kx.cpu().numpy(), ky.cpu().numpy(),
+                         kq.cpu().numpy(), C, cfg["tile"], cfg.get("chunk"))
+        pl = {k: torch.from_numpy(v).to(kx.device)
+              if isinstance(v, np.ndarray) else v for k, v in pl.items()}
     if len(_MADE) >= 64:
         del _MADE[next(iter(_MADE))]
     _MADE[key] = ([weakref.ref(t) for t in (kx, ky, kq)], pl)
