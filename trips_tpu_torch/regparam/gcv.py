@@ -17,12 +17,22 @@ Semantics mirror ``trips/utilities/reg_param/gcv.py:25-124``:
 These run on host over the tiny projected systems (k x k); the large-system
 work stays on device. A host NumPy/SciPy copy of
 ``trips_tpu/regparam/gcv.py``.
+
+The Tikhonov search evaluates ``N/D`` with the bits of ``_gcv_terms`` but
+factors each lam's G once: where ``scipy.linalg.solve`` itself would take
+Cholesky (G dense, exactly symmetric, finite, ``potrf`` succeeds), G is
+factored by ``dpotrf`` and both solves are ``dpotrs`` on that factor, the
+calls ``solve`` makes after its structure checks; every other G (the
+hybrid solvers' diagonal pencils, k = 1, a failed ``potrf``) goes through
+``_gcv_terms``. ``counts`` adds up the evaluations (``evals``) and those
+that took the factored path (``factored``); callers read differences.
 """
 from __future__ import annotations
 
 import numpy as np
 import scipy.linalg as sla
 from scipy import optimize as sop
+from scipy.linalg import lapack
 
 from .utils import dense_or_identity, is_identity_matrix
 
@@ -35,6 +45,40 @@ def _gcv_terms(lam, R_A, R_L, bproj):
     inverted = sla.solve(G, R_A.T)
     trace = float(np.trace(R_A @ inverted))
     return num, trace
+
+
+counts = {"evals": 0, "factored": 0}
+
+
+def _gcv_terms_factored(R_A, R_L, bproj):
+    """``lam -> _gcv_terms(lam, R_A, R_L, bproj)``, the same bits, with
+    G's parts formed once per search."""
+    AtA = R_A.T @ R_A
+    LtL = R_L.T @ R_L
+    Atb = R_A.T @ bproj
+    k = AtA.shape[0]
+    # symmetric AtA and LtL make every G symmetric bit for bit; solve()
+    # refuses what is not finite; G[0, k-1] != 0 makes G neither
+    # diagonal, triangular nor banded, so solve() takes Cholesky
+    factorable = (k >= 2 and np.array_equal(AtA, AtA.T)
+                  and np.array_equal(LtL, LtL.T)
+                  and np.isfinite(R_A).all() and np.isfinite(Atb).all())
+
+    def terms(lam):
+        counts["evals"] += 1
+        G = AtA + lam * LtL
+        if factorable and G[0, k - 1] != 0 and np.isfinite(G).all():
+            c, info = lapack.dpotrf(G, lower=0)
+            if info == 0:
+                counts["factored"] += 1
+                z, _ = lapack.dpotrs(c, Atb, lower=0)
+                resid = R_A @ z - bproj
+                num = float(np.linalg.norm(resid) ** 2)
+                inverted, _ = lapack.dpotrs(c, R_A.T, lower=0)
+                trace = float(np.trace(R_A @ inverted))
+                return num, trace
+        return _gcv_terms(lam, R_A, R_L, bproj)
+    return terms
 
 
 def gcv_tikhonov_projected(R_A, R_L, bproj, out_norm2=0.0, t_term=None,
@@ -57,8 +101,10 @@ def gcv_tikhonov_projected(R_A, R_L, bproj, out_norm2=0.0, t_term=None,
     if t_term is None:
         t_term = float(R_A.shape[0])
 
+    terms = _gcv_terms_factored(R_A, R_L, bproj)
+
     def gcv_func(lam):
-        num, trace = _gcv_terms(lam, R_A, R_L, bproj)
+        num, trace = terms(lam)
         if variant == "modified":
             num = num + out_norm2
         return num / (t_term - trace) ** 2

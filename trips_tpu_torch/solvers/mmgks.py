@@ -23,6 +23,7 @@ from ..krylov import golub_kahan
 from ..operators.derivatives import FirstDerivative2D
 from ..operators.weights import (gs_weights, iso_tv_weights,
                                  smoothed_holder_weights)
+from ..regparam import gcv
 from ..sparse.tall_qr import tall_r
 from ..utils import telemetry
 from ._common import as_op, build_info, host, like, stacked_lstsq, vec
@@ -107,11 +108,14 @@ def MMGKS(A, b, L, pnorm=2, qnorm=1, projection_dim=3, n_iter=5,
         # the reference solves the projected system against Q_A^T b
         # (MMGKS.py:106); gcv and dp choose lam on the weighted data
         bsolve = R_d[:ra, k + 1]
-        with telemetry.span("mmgks.lambda"):  # lam and y on the host
+        with telemetry.span("mmgks.lambda") as s:  # lam and y on the host
+            evals, factored = gcv.counts["evals"], gcv.counts["factored"]
             lam = _select_lambda(
                 regparam, R_A, R_L,
                 bproj if regparam in ("gcv", "dp") else bsolve, out_norm2,
                 delta, eta, kwargs)
+            s.set(gcv_evals=gcv.counts["evals"] - evals,
+                  gcv_factored=gcv.counts["factored"] - factored)
             lambda_history.append(lam)
             y = like(stacked_lstsq(R_A, lam, R_L, bsolve), b)
         x = V @ y
