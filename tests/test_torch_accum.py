@@ -35,6 +35,7 @@ from trips_tpu_torch.sparse import (BandedProjector, BucketedBandedProjector,
 from trips_tpu_torch.sparse import banded_kernels as bk
 
 import torch_fixed_point as fx
+from torch_threads import one_torch_thread  # noqa: F401
 
 KINDS = {"float32": None, "bfloat16": torch.bfloat16, "int8": "int8"}
 RTOL = 1e-6
@@ -50,17 +51,6 @@ def _numpy_builder():
         os.environ.pop("TRIPS_TPU_NO_NATIVE")
     else:
         os.environ["TRIPS_TPU_NO_NATIVE"] = old
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread: the suite runs files in parallel workers, and
-    these small tensors gain nothing from more threads than the CPU time
-    they take from the other workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -17,6 +17,8 @@ from trips_tpu_torch.problems.projector import fan_beam_matrix
 from trips_tpu_torch.sparse import BucketedBandedProjector
 from trips_tpu_torch.sparse import banded_kernels as bk
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 DTYPES = {"float32": (None, None), "bfloat16": (jnp.bfloat16, torch.bfloat16),
           "int8": ("int8", "int8")}
 # f32 sums in another order than the oracle's: a few ulps of the norm

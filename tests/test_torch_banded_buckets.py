@@ -26,6 +26,8 @@ from trips_tpu.sparse.banded_buckets import \
 from trips_tpu_torch.sparse import BucketedBandedProjector
 from trips_tpu_torch.sparse import banded_kernels as bk
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 DTYPES = {"float32": None, "bfloat16": jnp.bfloat16, "int8": "int8"}
 RTOL = 1e-6
 

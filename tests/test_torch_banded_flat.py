@@ -27,6 +27,8 @@ from trips_tpu_torch.krylov import cgls, cgls_normal
 from trips_tpu_torch.sparse import BandedProjector
 from trips_tpu_torch.sparse import banded_kernels as bk
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 FIELDS = ["W_rows", "shift_rows", "P_rows", "W_cols", "shift_cols",
           "P_cols"]
 

@@ -21,6 +21,8 @@ from trips_tpu_torch.problems.projector import fan_beam_matrix
 from trips_tpu_torch.sparse import BucketedBandedProjector
 from trips_tpu_torch.sparse import banded_kernels as bk
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 DTYPES = {"float32": None, "bfloat16": jnp.bfloat16, "int8": "int8"}
 TOL = {"float32": 1e-5, "bfloat16": 5e-3, "int8": 5e-3}
 

@@ -32,6 +32,8 @@ from trips_tpu_torch.parallel import batched_frame_solve, stack_ell_tables
 from trips_tpu_torch.solvers.fused import fused_gks, fused_mmgks
 from trips_tpu_torch.sparse import EllOperator
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 X_RTOL = 1e-7
 SOLVES = {"mmgks gcv": dict(solver="mmgks"),
           "gks dp": dict(solver="gks", regparam_mode="dp")}

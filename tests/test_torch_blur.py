@@ -26,6 +26,8 @@ import trips_tpu.operators.blur as jblur
 import trips_tpu_torch.operators as to
 import trips_tpu_torch.operators.blur as tblur
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 CPU = {"device": "cpu"}
 F64 = dict(dtype=torch.float64, **CPU)
 

@@ -24,6 +24,8 @@ from trips_tpu_torch.problems import device_sparse_operator
 from trips_tpu_torch.sparse import (BsrOperator, BucketedBandedProjector,
                                     CsrOperator, EllOperator)
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 JAX_BLOCK = {None: None, "bfloat16": jnp.bfloat16, "int8": jnp.int8}
 
 

@@ -26,6 +26,8 @@ from trips_tpu_torch.krylov.cgls import (CHUNK, _cgn_init, _cgn_step, _init,
 from trips_tpu_torch.problems.projector import fan_beam_matrix
 from trips_tpu_torch.sparse import BucketedBandedProjector
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 
 @pytest.fixture(scope="module")
 def dense():

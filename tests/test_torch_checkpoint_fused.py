@@ -35,6 +35,8 @@ from trips_tpu_torch.solvers.fused import fused_gks, fused_mmgks
 from trips_tpu_torch.utils.checkpoint import (CheckpointCallback,
                                               load_state, save_state)
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 CPU = {"device": "cpu"}
 GKS_KW = dict(projection_dim=3, n_iter=12, regparam_mode="gcv", chunk=3)
 DP_KW = dict(GKS_KW, regparam_mode="dp")

@@ -19,6 +19,8 @@ from trips_tpu_torch.core import DenseOperator, aslinearoperator
 from trips_tpu_torch.problems import device_sparse_operator
 from trips_tpu_torch.sparse import BucketedBandedProjector, CsrOperator
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 
 def _rel(a, b):
     a = a.numpy() if isinstance(a, torch.Tensor) else np.asarray(a)

@@ -28,6 +28,8 @@ import trips_tpu_torch.operators as to
 import trips_tpu_torch.problems as tp
 import trips_tpu_torch.solvers as ts
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 CPU = {"device": "cpu"}
 X_RTOL, DIRECT_RTOL = 1e-6, 1e-8
 ITERS1 = 12

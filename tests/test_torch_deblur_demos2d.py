@@ -28,6 +28,8 @@ import trips_tpu_torch.problems as tp
 import trips_tpu_torch.solvers as ts
 import trips_tpu_torch.solvers.fused as tf
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 CPU = {"device": "cpu"}
 X_RTOL, F32_GATE = 1e-6, 1e-5
 

@@ -20,6 +20,8 @@ import trips_tpu.utils as ju
 import trips_tpu_torch.problems as tp
 import trips_tpu_torch.utils as tu
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 CPU = {"device": "cpu"}
 SIGNALS = ["sigma", "piecewise", "curve0", "curve1", "curve2", "curve3"]
 

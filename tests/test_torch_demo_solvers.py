@@ -25,6 +25,8 @@ from trips_tpu.sparse.banded_buckets import \
     BucketedBandedProjector as JaxBucketed
 from trips_tpu_torch.sparse import BucketedBandedProjector
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 
 def _rel(a, b):
     a = (a.numpy() if isinstance(a, torch.Tensor) else np.asarray(a))

@@ -22,7 +22,6 @@ twin's own problem and solves against the JAX demo's, live, in float64.
 """
 import numpy as np
 import pytest
-import torch
 
 from trips_tpu_torch.demos import (demo_1d_deblurring, demo_2d_deblurring,
                                    demo_dynamic_ct, demo_fused_dynamic,
@@ -30,6 +29,7 @@ from trips_tpu_torch.demos import (demo_1d_deblurring, demo_2d_deblurring,
                                    demo_tomography, demo_your_data)
 
 import torch_saved_bundles
+from torch_threads import one_torch_thread  # noqa: F401
 
 # one unit of the printed 4 decimals; the tomo configuration's 20-step
 # float32 Krylov solves on the bfloat16 pack (fused Hybrid LSQR, cgls,
@@ -79,17 +79,6 @@ TWINS = {
 }
 # demo_saved_data --iters 6 on tests/torch_saved_bundles.py's bundles
 SAVED_DATA = (["--iters", "6"], [0.10586174085818384, 0.18795260590546506])
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread: the suite runs files in parallel workers, and
-    these small tensors gain nothing from more threads than the CPU time
-    they take from the other workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("twin", list(TWINS))

@@ -34,7 +34,6 @@ import sys
 
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 import trips_tpu.operators as jo
@@ -47,20 +46,10 @@ from trips_tpu_torch.demos import (demo_1d_deblurring, demo_2d_deblurring,
 from trips_tpu_torch.sparse import CsrOperator
 
 import torch_saved_bundles
+from torch_threads import one_torch_thread  # noqa: F401
 
 F64 = torch.float64
 X_RTOL, SEARCH_RTOL = 1e-10, 1e-7
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread: the suite runs files in parallel workers, and
-    these small tensors gain nothing from more threads than the CPU time
-    they take from the other workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _x(x):

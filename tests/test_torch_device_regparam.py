@@ -35,6 +35,8 @@ import trips_tpu_torch.regparam.device as td
 from trips_tpu.utils.gsvd import gsvd
 from trips_tpu_torch.core import loop
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 CPU = {"device": "cpu"}
 FUNCS = [
     (lambda x, m: (x - 0.337) ** 2, 0.0, 2.0),

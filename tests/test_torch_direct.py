@@ -25,6 +25,8 @@ import trips_tpu_torch.solvers as ts
 from trips_tpu.operators import Blur1D
 from trips_tpu_torch.operators import FirstDerivative1D, first_derivative_matrix
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 # the modules (the packages re-export their function under the same name)
 jgsvd_mod = importlib.import_module("trips_tpu.utils.gsvd")
 tgsvd_mod = importlib.import_module("trips_tpu_torch.utils.gsvd")

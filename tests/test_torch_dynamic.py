@@ -52,6 +52,8 @@ from trips_tpu_torch.sparse import (BucketedDynamicBandedOperator,
                                     CsrOperator, DynamicBandedOperator)
 from trips_tpu_torch.sparse import banded_kernels as bk
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 X_RTOL, LAM_FLAT = 1e-6, 1e-4
 LAM_RTOL = {"anisoTV": 1e-6, "isoTV": 1e-6, "GS": 1e-6, "Hybrid_LSQR": 1e-4}
 CLASSES = [("flat", None), ("flat", "bfloat16"), ("bucketed", None),

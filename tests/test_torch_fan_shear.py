@@ -40,6 +40,8 @@ from trips_tpu_torch.operators import shear_kernels as sk
 from trips_tpu_torch.problems import fan_beam_matrix
 from trips_tpu_torch.problems.phantoms import grains
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 NX, VIEWS = 32, 8
 KINDS = {"float64": (jnp.float64, jnp.float64, torch.float64, torch.float64),
          "float32": (jnp.float32, jnp.float32, torch.float32, torch.float32),

@@ -63,6 +63,8 @@ from trips_tpu_torch.operators import CenteredSpaceTimeDerivative
 from trips_tpu_torch.operators import FirstDerivative1D
 from trips_tpu_torch.solvers import fused_info as ti
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 CPU = {"device": "cpu"}
 MODES = ["gcv", "dp", "l_curve", "scalar"]
 SOLVERS = ["gks", "mmgks", "hlsqr", "hgmres"]

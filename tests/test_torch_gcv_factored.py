@@ -35,6 +35,8 @@ from trips_tpu_torch.regparam import gcv
 from trips_tpu_torch.solvers import MMGKS
 from trips_tpu_torch.utils import telemetry
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 pytestmark = pytest.mark.filterwarnings("ignore::scipy.linalg.LinAlgWarning")
 
 SIZES = [1, 4, 12, 23]

@@ -27,6 +27,7 @@ import trips_tpu.problems.gelphantom as jg
 import trips_tpu_torch.problems.gelphantom as tg
 from test_gel_geometry import (N_DET, OD, PIXEL, SO, SD,
                                cil_reference_arithmetic, make_info)
+from torch_threads import one_torch_thread  # noqa: F401
 
 NAME = "GelPhantomData_b4.mat"
 # CGLS on the gel system at nx = 32 amplifies the roundoff of the two

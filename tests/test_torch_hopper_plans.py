@@ -48,6 +48,8 @@ from trips_tpu_torch.sparse import BucketedBandedProjector
 from trips_tpu_torch.sparse.banded_kernels import (SMEM_BYTES, launch_plan,
                                                    tile_plan)
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 
 @pytest.mark.parametrize("K,blocks", [(160000, 132), (10000, 132),
                                       (43264, 114), (256, 132), (4096, 1),

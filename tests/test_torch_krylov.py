@@ -24,6 +24,8 @@ from trips_tpu.sparse.banded_buckets import \
 from trips_tpu_torch.core import DenseOperator
 from trips_tpu_torch.sparse import BucketedBandedProjector
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 RTOL = 1e-10
 
 

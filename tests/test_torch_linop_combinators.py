@@ -20,6 +20,8 @@ import trips_tpu_torch.core as tc
 import trips_tpu_torch.utils as tu
 from trips_tpu_torch.operators import FirstDerivative2D
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 CPU = {"device": "cpu"}
 
 

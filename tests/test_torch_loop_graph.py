@@ -30,6 +30,8 @@ from trips_tpu_torch.regparam import device as regdev
 from trips_tpu_torch.solvers import fused
 from trips_tpu_torch.solvers.checkpointed import cgls_normal_checkpointed
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 CPU = {"device": "cpu"}
 
 

@@ -27,6 +27,8 @@ from trips_tpu.krylov import lsqr as jax_lsqr
 from trips_tpu_torch.core import DenseOperator, loop
 from trips_tpu_torch.krylov import lsqr
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 CPU = {"device": "cpu"}
 # (max_iter, damp, atol=btol): tolerances reached before the cap, and the
 # cap reached first (the last)

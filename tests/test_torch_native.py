@@ -22,6 +22,7 @@ from scipy import sparse as sp
 import trips_tpu.problems as jp
 import trips_tpu_torch.problems as tp
 from test_torch_support import _hold_to_oracle
+from torch_threads import one_torch_thread  # noqa: F401
 from trips_tpu.sparse import BandedProjector as JaxFlat
 from trips_tpu.sparse import BucketedBandedProjector as JaxBucketed
 from trips_tpu.sparse.dynamic_banded import \

@@ -18,6 +18,8 @@ import trips_tpu.operators as jo
 import trips_tpu_torch.core as tc
 import trips_tpu_torch.operators as to
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 RTOL = 1e-14
 NX, NY, NT = 5, 7, 3
 

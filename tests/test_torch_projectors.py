@@ -26,6 +26,8 @@ from trips_tpu.problems.projector import \
     parallel_beam_matrix as jax_parallel_beam_matrix
 from trips_tpu_torch.problems import fan_beam_matrix, parallel_beam_matrix
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 NX = 24
 ANGLES = np.linspace(0, np.pi, 10, endpoint=False) + 0.0123
 OPS = {

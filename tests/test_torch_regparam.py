@@ -22,6 +22,8 @@ from trips_tpu_torch.regparam.gcv import gcv_tikhonov_projected as tgcv
 from trips_tpu_torch.regparam.utils import (dense_or_identity,
                                             is_identity_matrix)
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 RTOL = 1e-12
 
 

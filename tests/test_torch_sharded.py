@@ -31,6 +31,7 @@ from scipy import sparse as sp
 
 import torch_dist_worker as worker
 import trips_tpu.parallel as jpar
+from torch_threads import one_torch_thread  # noqa: F401
 from trips_tpu.krylov import cgls, cgls_normal
 from trips_tpu.operators import FirstDerivative1D, SpaceTimeDerivative
 from trips_tpu.problems import generate_synthetic_dynamic

@@ -52,6 +52,8 @@ from trips_tpu_torch.sparse import (BandedProjector, BucketedBandedProjector,
                                     BucketedDynamicBandedOperator,
                                     DynamicBandedOperator, EllOperator)
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 FLAT_FIELDS = ("W_rows", "shift_rows", "P_rows", "W_cols", "shift_cols",
                "P_cols")
 

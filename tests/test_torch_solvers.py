@@ -36,6 +36,8 @@ from trips_tpu.core import DenseOperator as JaxDense
 from trips_tpu.core import IdentityOperator as JaxIdentity
 from trips_tpu_torch.core import DenseOperator, IdentityOperator
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 X_RTOL = 1e-6
 LAM_RTOL = {"dp": 1e-8, "l_curve": 1e-6, "gcv": 1e-6}
 LAM_FLAT = 1e-4

@@ -33,6 +33,8 @@ from trips_tpu_torch.parallel import (StreamedDynamicBandedOperator,
                                       cgls_normal_streamed)
 from trips_tpu_torch.sparse import BandedProjector, DynamicBandedOperator
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 FIELDS = ["W_rows", "shift_rows", "P_rows", "W_cols", "shift_cols",
           "P_cols"]
 

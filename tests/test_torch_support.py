@@ -41,6 +41,8 @@ import trips_tpu_torch.config as tconfig
 import trips_tpu_torch.problems as tp
 import trips_tpu_torch.utils.telemetry as ttel
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 NATIVE = os.path.join(os.path.dirname(jp.__file__), os.pardir, "native",
                       "libprojector.so")
 EDGE_TOL, CHORD_ATOL = 1e-9, 1e-9

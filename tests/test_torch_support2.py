@@ -29,6 +29,7 @@ import trips_tpu_torch.core.linop as tl
 import trips_tpu_torch.operators as to
 import trips_tpu_torch.problems as tp
 from test_projector_oracle import _rasterize, _scaled
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 # ---- analytic_sinogram ---------------------------------------------------

@@ -16,18 +16,9 @@ import torch
 from trips_tpu_torch.sparse import tall_qr
 from trips_tpu_torch.sparse.tall_qr import plan, tall_r, tall_r_ref
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 TOL = 1e-12
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread: the suite runs files in parallel workers, and
-    the plain version's small per-column ops gain nothing from more
-    threads than the CPU time they take from the other workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _panel(m, k, seed, weighted):

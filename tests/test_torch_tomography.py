@@ -26,6 +26,8 @@ from trips_tpu.sparse.banded_buckets import \
 from trips_tpu_torch.solvers import CGLS
 from trips_tpu_torch.sparse import BucketedBandedProjector
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 
 @pytest.fixture(autouse=True)
 def _numpy_builder(monkeypatch):

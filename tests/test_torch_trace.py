@@ -33,6 +33,8 @@ from trips_tpu_torch.operators import FirstDerivative1D
 from trips_tpu_torch.solvers import MMGKS
 from trips_tpu_torch.utils import telemetry
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 N_ITER, CGLS_STEPS = 3, 2 * CHUNK + 3
 
 

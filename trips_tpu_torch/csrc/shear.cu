@@ -50,8 +50,9 @@
 // where quarter 1's 29 views in one block set the tail.
 // Bound: the (na, C, C) cotangents read once (19.2 MB in bf16).
 //
-// Where the time goes (python3 -m trips_tpu_torch._ablate, which times
-// copies with parts patched out; an H100 at 700 W, bf16, the plans taken):
+// Where the time goes (timed at the K4/K5 redesign on copies of this file
+// with parts patched out, CHANGES.md; an H100 at 700 W, bf16, the plans
+// taken):
 // of K4's 0.058 ms, stage 1 takes 0.030 (0.011 of it the gathers), stages
 // 2 and 3 0.010, the shift records 0.006, launch and stores 0.011; of K5's
 // 0.077, stage 1 0.042 (0.025 the gathers, 0.011 the row records'
