@@ -214,7 +214,6 @@ The line before the last holds ``{"kernels": [...]}``; the last line is
 """
 import contextlib
 import copy
-import ctypes
 import importlib.util
 import json
 import os
@@ -573,10 +572,10 @@ def library_csr(M, dev):
     raise RuntimeError("torch takes no CSR matrix-vector product here")
 
 
-def parent_loops():
-    """{"cgls": fn, "cgls_normal": fn} of PARENT's ``krylov/cgls.py``
-    (PARENT's package imported as ``parent_trips_tpu_torch``: it imports
-    only torch), or None without PARENT."""
+def parent_package():
+    """PARENT's package imported as ``parent_trips_tpu_torch`` (it imports
+    only torch; its kernel library builds from its own ``csrc/`` into its
+    checkout), or None without PARENT: -> the package's name."""
     pkg = PARENT / "trips_tpu_torch"
     if not (pkg / "krylov" / "cgls.py").exists():
         return None
@@ -587,80 +586,46 @@ def parent_loops():
         mod = importlib.util.module_from_spec(spec)
         sys.modules[name] = mod  # its submodules look their package up
         spec.loader.exec_module(mod)
+    return name
+
+
+def parent_loops():
+    """{"cgls": fn, "cgls_normal": fn} of PARENT's ``krylov/cgls.py``, or
+    None without PARENT."""
+    name = parent_package()
+    if name is None:
+        return None
     mod = importlib.import_module(f"{name}.krylov.cgls")
     return {"cgls": mod.cgls, "cgls_normal": mod.cgls_normal}
 
 
 def parent_banded():
-    """PARENT's K1-K3 library (its own ``_build.py`` and ``csrc/``, built
-    into its checkout), or None without PARENT: -> a function
-    ``run(name, inp, inp_t, shape, kind, prepared, n_groups, p, rows)``
-    that makes
-    PARENT's wrapper's output (K1, K3: zeroed float32 images its atomics
-    add into) and launches PARENT's kernel over the arguments of
-    ``banded_kernels.prepare`` (the same launch plans and ctypes arrays;
-    the entry point without the fixed-point arguments)."""
-    import torch
-
-    from trips_tpu_torch.sparse import banded_kernels as bk
-
-    path = PARENT / "trips_tpu_torch" / "_build.py"
-    if not path.exists():
+    """PARENT's ``sparse/banded_kernels.py`` (its wrappers, plans, bounds
+    and kernels), or None without PARENT."""
+    name = parent_package()
+    if name is None:
         return None
-    spec = importlib.util.spec_from_file_location("parent_build", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    lib = mod.load()
-    check(len(mod.ENTRY_POINTS["trips_banded"]) == 27,
-          "PARENT's trips_banded is not the atomics entry point")
-
-    def run(name, inp, inp_t, shape, kind, prepared, n_groups, p=0, rows=0):
-        n, p_pad, nf_pack, launches = prepared[:4]
-        fill = torch.empty if name == "banded_fwd" else torch.zeros
-        out = fill(shape, dtype=torch.float32, device=inp.device)
-        nf = shape[0] if len(shape) == 3 else 1
-        stream = torch.cuda.current_stream(inp.device).cuda_stream
-        for nb, arrs, pl in launches:
-            err = lib.trips_banded(
-                bk._OP[name], bk._KIND[kind], nb,
-                *(ctypes.addressof(a) for a in arrs), inp.data_ptr(),
-                inp_t.data_ptr(), out.data_ptr(), p, rows, n, p_pad,
-                n_groups, pl["det"], pl["parts"],
-                pl["lines"], nf, stream)
-            check(err == 0, f"PARENT's {name} launch failed: {err}")
-        return out
-
-    return run
+    return importlib.import_module(f"{name}.sparse.banded_kernels")
 
 
-def parent_k13(parent_k, adj_args, ata_args, timer):
-    """K3 and K1 of PARENT (float atomics) beside this tree's (fixed
-    point) on the same wrapper arguments (``banded_adj_buckets``'s and
+def parent_k13(pbk, adj_args, ata_args, timer):
+    """K3 and K1 of PARENT (its wrappers, ``pbk``) beside this tree's on the
+    same wrapper arguments (``banded_adj_buckets``'s and
     ``banded_ata_buckets``'s), each wrapper's device ms in turns (this,
     PARENT, PARENT, this; ``timer(fn)`` -> ms): -> {kernel: {"this": ms,
     "parent": ms, "rel": PARENT's output against this one's, "parent
-    bitwise": whether two PARENT runs agree to the bit}}."""
+    bitwise": whether two PARENT runs agree to the bit, "same bits":
+    whether PARENT's output is this one's to the bit}}. K3 is PARENT's
+    kernel; K1 walks tap spans here, which changes the cut of its stage-1
+    float32 sums, so its bits may differ (PERF.md section 6)."""
     import torch
 
     from trips_tpu_torch.sparse import banded_kernels as bk
 
-    Y, bks, aidx, G = adj_args
-    X, XT = ata_args[:2]
-    n, kind = bks[0][0].shape[-2], bks[0][0].dtype
-    bounds = bk.pack_bounds(bks, G)
-    prep = {"banded_adj": bk.prepare("banded_adj", Y, bks, aidx, G,
-                                     bounds["banded_adj"]),
-            "banded_ata": bk.prepare("banded_ata", X, bks, None, G,
-                                     bounds["banded_ata"])}
-    runs = {
-        "banded_adj": (lambda: bk.banded_adj_buckets(*adj_args),
-                       lambda: parent_k("banded_adj", Y, Y,
-                                        Y.shape[:-2] + (n, n), kind,
-                                        prep["banded_adj"], G, Y.shape[-1],
-                                        Y.shape[-2])),
-        "banded_ata": (lambda: bk.banded_ata_buckets(*ata_args),
-                       lambda: parent_k("banded_ata", X, XT, X.shape, kind,
-                                        prep["banded_ata"], G))}
+    runs = {"banded_adj": (lambda: bk.banded_adj_buckets(*adj_args),
+                           lambda: pbk.banded_adj_buckets(*adj_args)),
+            "banded_ata": (lambda: bk.banded_ata_buckets(*ata_args),
+                           lambda: pbk.banded_ata_buckets(*ata_args))}
     out = {}
     for name, (this, par) in runs.items():
         got, p1, p2 = this(), par(), par()
@@ -669,10 +634,24 @@ def parent_k13(parent_k, adj_args, ata_args, timer):
             t[label].append(timer(this if label == "this" else par))
         e = rel(p1, got)
         check(e <= KERNEL_RTOL, f"PARENT's {name} vs this one's: {e!r}")
+        check(name != "banded_adj" or torch.equal(p1, got),
+              "PARENT's K3 differs from this one's in the bits")
         out[name] = {"this": float(np.mean(t["this"])),
                      "parent": float(np.mean(t["parent"])), "rel": e,
-                     "parent bitwise": torch.equal(p1, p2)}
+                     "parent bitwise": torch.equal(p1, p2),
+                     "same bits": torch.equal(p1, got)}
     return out
+
+
+def k1_share(fn):
+    """The share of the stored slabs' bytes that the K1 launches of
+    ``fn()`` load (``banded_kernels.k1_bytes``: spans over stored)."""
+    from trips_tpu_torch.sparse import banded_kernels as bk
+
+    before = dict(bk.k1_bytes)
+    fn()
+    return ((bk.k1_bytes["spans"] - before["spans"])
+            / (bk.k1_bytes["stored"] - before["stored"]))
 
 
 def demo_solves(OP, bv, L, delta):
@@ -805,10 +784,13 @@ def dynamic_path(dev, card, gen):
                                 float((got - ref).abs().max()))
             check(errs[name] <= KERNEL_RTOL,
                   f"{name} frames {kind} rel err {errs[name]!r}")
+        share = k1_share(lambda: bk.banded_ata_buckets(
+            *frame_args(op, X, Y)["banded_ata"]))
         print(f"[7] {kind}, one launch over {nt} frames and "
               f"{len(op._bks)} stacks vs plain, rel err: "
               + ", ".join(f"{k} {v!r}" for k, v in errs.items())
-              + "; each bitwise the same in a second run")
+              + f"; each bitwise the same in a second run; K1 loads "
+              f"{share!r} of the stored bytes")
     f32 = ops["flat float32"]
     A64 = A.astype(np.float32).astype(np.float64)
     rng = np.random.default_rng(2)
@@ -1023,9 +1005,9 @@ def dynamic_times(dyn, dev, card, gen):
             parent_ms[kind] = parent_k13(parent_k, args["banded_adj"],
                                          args["banded_ata"],
                                          lambda f: device_ms(f, 10))
-            print(f"[7] {kind} K3 and K1 over {nt} frames, this tree "
-                  f"(fixed point) and PARENT (float atomics) in turns, "
-                  f"device ms: {parent_ms[kind]}; card {card}")
+            print(f"[7] {kind} K3 and K1 over {nt} frames, this tree and "
+                  f"PARENT in turns, device ms: {parent_ms[kind]}; card "
+                  f"{card}")
         if kind == "flat float32":
             plain_ms = {k: device_ms((lambda f, a: lambda: f(*a))(
                 getattr(bk, k + "_buckets_ref"), args[k]), 3,
@@ -1966,9 +1948,9 @@ JAX_BATCHED_RELERR = {
 # its own packing's order: the frame's pack has other buckets than the
 # dynamic one); the CGLS and batched final relErrors against JAX's
 # as in 7; the memory an apply holds (bytes requested, since operator
-# construction): the two slots, the output and STREAM_SLACK_IMAGES float32
-# images of n_pad^2 (a frame's images and sinograms and the resident angle
-# ids, far below one slab).
+# construction): the two slots, K1's resident tap spans (one copy a frame),
+# the output and STREAM_SLACK_IMAGES float32 images of n_pad^2 (a frame's
+# images and sinograms and the resident angle ids, far below one slab).
 STREAM_RTOL, STREAM_GATE, BATCHED_GATE = 1e-6, 1e-3, 1e-3
 STREAM_SLACK_IMAGES = 16
 SLOW_CYCLES = 2_000_000  # torch.cuda._sleep before each frame: ~1 ms
@@ -2066,6 +2048,12 @@ def streamed_path(dev, card, dyn):
             getattr(tw, f)(v[o[t]:o[t + 1]]) for t, tw in enumerate(twins)])(
                 fn, *parts[fn]) for fn in parts}
         Ax_frames = torch.cat(alone["matvec"]())
+        # the resident operator's applies (compared with below) before the
+        # memory count starts: their kept arguments, bounds and K1 spans
+        # are remade when earlier phases pushed them out of the wrappers'
+        # caches, and are not the streamed apply's
+        for fn, v in (("matvec", x), ("rmatvec", y), ("normal_matvec", x)):
+            getattr(res, fn)(v)
         torch.cuda.synchronize()
         before = requested_bytes(dev, "current")
         t2 = time.perf_counter()
@@ -2078,16 +2066,17 @@ def streamed_path(dev, card, dyn):
         op0, tw0 = frames[0], sop._twins[0][0]
         t4 = time.perf_counter()
         bounds = bk.pack_bounds(op0._bks, op0.n_groups)
+        spans = bk.pack_spans(op0._bks)
         for name, ids in (("banded_fwd", tw0._aidx),
                           ("banded_adj", tw0._aidx), ("banded_ata", None)):
             bk.prepare(name, sop._slots[0], tw0._bks, ids, op0.n_groups,
-                       bounds.get(name))
+                       bounds.get(name), spans)
         check_us = (time.perf_counter() - t4) * 1e6
         print(f"[10] {kind}: {nt} host frames packed in {t1 - t0:.2f} s; "
               f"streamed operator (pinned slabs, slots, twins, the frames' "
-              f"fixed-point bounds) in {t3 - t2:.2f} s; slabs "
+              f"fixed-point bounds and K1 spans) in {t3 - t2:.2f} s; slabs "
               f"{min(slabs)}..{max(slabs)} bytes, {sum(slabs)} per apply; "
-              f"one frame's checks, launch arguments and bounds "
+              f"one frame's checks, launch arguments, bounds and spans "
               f"{check_us!r} us on the host")
         errs = {}
         for fn, (v, _) in parts.items():
@@ -2129,11 +2118,13 @@ def streamed_path(dev, card, dyn):
         torch.cuda.synchronize()
         peak = requested_bytes(dev, "peak") - before
         slots = 2 * max(slabs)
-        bound_b = (slots + 4 * x.numel()
+        spans_b = sum(sp.numel() * sp.element_size() for op in frames
+                      for sp in bk.pack_spans(op._bks))
+        bound_b = (slots + spans_b + 4 * x.numel()
                    + STREAM_SLACK_IMAGES * 4 * frames[0].n_pad ** 2)
         print(f"[10] {kind}: peak memory of an apply {peak} bytes requested "
-              f"(two slots {slots}, bound {bound_b}, the whole pack "
-              f"{sum(slabs)})")
+              f"(two slots {slots}, K1's spans {spans_b}, bound {bound_b}, "
+              f"the whole pack {sum(slabs)})")
         check(slots <= peak <= bound_b, f"streamed {kind} peak {peak}")
         orig = sop._apply_frame
 
@@ -3159,6 +3150,9 @@ def gel_path(dev, card, gen):
     per = dict(bk.launch_counts)
     check(per == {"banded_fwd": 1, "banded_adj": 1, "banded_ata": 1},
           f"gel: one launch per apply over the frames: {per}")
+    share = k1_share(lambda: blk.normal_matvec(x))
+    print(f"[12b] K1 over the {nt} frames of the shared stack loads "
+          f"{share!r} of the stored bytes it covers")
 
     # K1-K3 per apply over the frames: device ms, bound, plain, CSR product
     # (before any solver's profile: a session taken after the solvers'
@@ -3174,9 +3168,8 @@ def gel_path(dev, card, gen):
                                         args["banded_ata"],
                                         lambda f: checked_ms(f, 10)[0])
     if parent_ms:
-        print(f"[12b] K3 and K1 over {nt} frames, this tree (fixed point) "
-              f"and PARENT (float atomics) in turns, device ms: "
-              f"{parent_ms}; card {card}")
+        print(f"[12b] K3 and K1 over {nt} frames, this tree and PARENT in "
+              f"turns, device ms: {parent_ms}; card {card}")
     # least bytes: the pack (W, S, Pm) and angle ids once, the images and
     # sinograms in and out once; 2 flops per nonzero weight, frame and pass
     pack = sum(nbytes(*k[:4]) for k in op._bks)
@@ -3778,6 +3771,7 @@ def main():
         torch.cuda.synchronize()
         check(torch.equal(got, bk.banded_ata_buckets(*args)),
               f"banded_ata_buckets {kind} differs from run to run")
+        share = k1_share(lambda: bk.banded_ata_buckets(*args))
         e = rel(got, ref)
         max_abs["banded_ata"] = max(max_abs["banded_ata"],
                                     float((got - ref).abs().max()))
@@ -3812,7 +3806,8 @@ def main():
         print(f"[2] {kind} kernels vs plain, worst bucket rel err: "
               + ", ".join(f"{k} {v!r}" for k, v in worst.items())
               + f"; over all {len(op.stacks)} buckets in one launch each: "
-              f"banded_ata {e!r}, "
+              f"banded_ata {e!r} (loads {share!r} of the pack's stored "
+              f"bytes), "
               + ", ".join(f"{k} {v!r}" for k, v in e_all.items())
               + "; K1-K3 per bucket and over all buckets bitwise the same "
               "in a second run; K3 of zeros zero, of a NaN all NaN")
@@ -4235,7 +4230,7 @@ def main():
           f"{BF16_FLOPS:.3g} bf16 and {TF32_FLOPS:.3g} TF32 FLOP/s")
     # 256 MB, written between runs where a cold L2 (50 MB) is wanted
     scrub = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
-    kernel_ms, banded_bound, parent_ms = {}, {}, {}
+    kernel_ms, banded_bound, parent_ms, k1_bounds = {}, {}, {}, {}
     parent_k = parent_banded()
     if parent_k is None:
         print(f"[4] parent: no checkout under {PARENT} (K1 and K3 not "
@@ -4269,16 +4264,25 @@ def main():
         tot = {k: device_ms(f, 10, by_kernel.get(k)) for k, f in runs.items()}
         events = {name: cuda_ms(runs[name], 20) for name in REPLACES}
         kernel_ms[kind] = tot
-        # least bytes: every stored weight, S, Pm, scales and angle ids
-        # once, the image in, the sinogram or image out (once); 2 flops per
-        # nonzero weight and pass
+        # least bytes: K2, K3: every stored weight, S, Pm, scales and
+        # angle ids once, the image in, the sinogram or image out (once);
+        # K1, which reads only its tap spans: every nonzero weight once (as
+        # the benchmark's k1_roofline counts), the image in and out; beside
+        # it, the bounds of its spans' bytes and of the whole pack; 2 flops
+        # per nonzero weight and pass
         pack = sum(nbytes(*st) for st in op.stacks)
         ids = nbytes(*op._aidx)
         nz = sum(int((st[0] != 0).sum()) for st in op.stacks)
         img = op.n_pad * op.n_pad * 4
         sino = nbytes(Ys)
+        wsize = op.stacks[0][0].element_size()
+        spans = sum(int((sp >> 16).sum()) for sp in bk.pack_spans(op._bks))
+        k1_bounds[kind] = {
+            "spans": bound(spans * bk.span_det(wsize) * wsize + 2 * img,
+                           4 * nz, F32_FLOPS)[0],
+            "pack": bound(pack + 2 * img, 4 * nz, F32_FLOPS)[0]}
         banded_bound[kind] = {
-            "banded_ata": bound(pack + 2 * img, 4 * nz, F32_FLOPS),
+            "banded_ata": bound(nz * wsize + 2 * img, 4 * nz, F32_FLOPS),
             "banded_fwd": bound(pack + ids + img + sino, 2 * nz, F32_FLOPS),
             "banded_adj": bound(pack + ids + sino + img, 2 * nz, F32_FLOPS)}
         wbytes = sum(nbytes(st[0]) for st in op.stacks)
@@ -4286,16 +4290,19 @@ def main():
             parent_ms[kind] = parent_k13(
                 parent_k, adj_buckets(op, Ys), all_buckets(op, X),
                 lambda f: device_ms(f, 10))
-            print(f"[4] {kind} K3 and K1 over all buckets, this tree (fixed "
-                  f"point) and PARENT (float atomics) in turns, device ms: "
-                  f"{parent_ms[kind]}; card {card}")
+            print(f"[4] {kind} K3 and K1 over all buckets, this tree and "
+                  f"PARENT in turns, device ms: {parent_ms[kind]}; card "
+                  f"{card}")
         print(f"[4] {kind} one apply (W {wbytes} B, {nz} nonzero weights), "
               f"one launch per kernel:")
         for name in REPLACES:
             ms, (bms, by) = tot[name], banded_bound[kind][name]
+            k1 = (f" (its spans' {k1_bounds[kind]['spans']!r} ms, the "
+                  f"pack's {k1_bounds[kind]['pack']!r} ms)"
+                  if name == "banded_ata" else "")
             print(f"[4]   {name} {ms!r} ms ({wbytes / ms / 1e6!r} GB/s of "
                   f"W; event ms {events[name]!r}), bound {bms!r} ms "
-                  f"({by}), plain {tot[name + '_ref']!r} ms; by kernel "
+                  f"({by}){k1}, plain {tot[name + '_ref']!r} ms; by kernel "
                   f"{by_kernel[name]}")
         # per bucket with L2 scrubbed before each run, each kernel on one
         # bucket (nb = 1): K1 reads W once, K2 + K3 read it twice
@@ -4503,6 +4510,10 @@ def main():
                      library="float32 CSR (torch.sparse_csr_tensor, "
                              f"{idx} indices)",
                      library_bound_ms=library_bound[name][0],
+                     **({f"{k}_bound_ms_by_storage": {
+                         c: v[k] for c, v in k1_bounds.items()}
+                         for k in ("spans", "pack")}
+                        if name == "banded_ata" else {}),
                      **({"parent_ms_by_storage": {
                          k: v[name] for k, v in parent_ms.items()}}
                         if name in ("banded_ata", "banded_adj")

@@ -267,23 +267,32 @@ def test_stage1_overflow_gives_nan(matrix):
 
 def test_bounds_one_pass_per_pack(matrix, monkeypatch):
     """``_prepare`` makes K1's and K3's bounds of one pack from a single
-    ``abs_sums`` pass and keeps them while the pack's tensors live."""
+    ``abs_sums`` pass and keeps them while the pack's tensors live; K1's
+    tap spans likewise from one ``pack_spans`` pass."""
     op = _pack("float32", "bucketed", matrix)
-    calls = []
-    true_sums = bk.abs_sums
+    calls, span_calls = [], []
+    true_sums, true_spans = bk.abs_sums, bk.pack_spans
     monkeypatch.setattr(bk, "abs_sums",
                         lambda *a: calls.append(1) or true_sums(*a))
-    monkeypatch.setattr(bk, "prepare", lambda name, inp, b, ids, g, bound:
-                        (name, bound))
+    monkeypatch.setattr(bk, "pack_spans",
+                        lambda *a: span_calls.append(1) or true_spans(*a))
+    monkeypatch.setattr(bk, "prepare",
+                        lambda name, inp, b, ids, g, bound, spans=None:
+                        (name, bound, spans))
     bk.clear_plans()
     X = torch.zeros((op.n_pad, op.n_pad))
-    got = {name: bk._prepare(name, X, op._bks, ids, op.n_groups)[1]
+    got = {name: bk._prepare(name, X, op._bks, ids, op.n_groups)
            for name, ids in (("banded_adj", op._aidx), ("banded_ata", None),
                              ("banded_fwd", op._aidx))}
-    assert len(calls) == 1 and got["banded_fwd"] is None
+    assert len(calls) == 1 and got["banded_fwd"][1] is None
     want = true_sums(op._bks, op.n_groups)
-    assert torch.equal(got["banded_adj"], want[0])
-    assert torch.equal(got["banded_ata"], want[0] * want[1])
+    assert torch.equal(got["banded_adj"][1], want[0])
+    assert torch.equal(got["banded_ata"][1], want[0] * want[1])
+    assert len(span_calls) == 1
+    assert got["banded_adj"][2] is None and got["banded_fwd"][2] is None
+    assert all(torch.equal(a, b) for a, b in zip(
+        got["banded_ata"][2], true_spans(op._bks)))
     bk._prepare("banded_adj", X, op._bks, op._aidx, op.n_groups)
-    assert len(calls) == 1
+    bk._prepare("banded_ata", X, op._bks, None, op.n_groups)
+    assert len(calls) == 1 and len(span_calls) == 1
     bk.clear_plans()

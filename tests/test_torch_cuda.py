@@ -339,6 +339,144 @@ def test_banded_ata_every_bucket(cuda, geometries, geometry, dtype):
     assert _rel(got, ref) <= 1e-5
 
 
+@pytest.fixture
+def fresh_banded_plans():
+    yield
+    bk.clear_plans()
+
+
+@pytest.mark.parametrize("dtype", KINDS)
+@pytest.mark.parametrize("geometry", ["tomo256x60", "nx300"])
+def test_k1_spans_in_chunks(cuda, geometries, geometry, dtype,
+                            fresh_banded_plans, monkeypatch):
+    """K1 with room for only two spans a block (every block takes its lines
+    in chunks, and reloads all but the last for stage 2) against the plain
+    version, the same bits from run to run."""
+    A, nx, theta = geometries[geometry]
+    op = BucketedBandedProjector.from_scipy_fan(
+        A, nx, None, angles=theta, n_groups=32, dtype=dtype, device=cuda)
+    plans = {k: dict(v) for k, v in bk.PLANS.items()}
+    plans["banded_ata"]["slab_bytes"] = {4: 1, 2: 1, 1: 1}
+    monkeypatch.setattr(bk, "PLANS", plans)
+    bk.clear_plans()
+    size = op._bks[0][0].element_size()
+    pl = bk.launch_plan("banded_ata", tuple(b[0].shape[-3] for b in op._bks),
+                        op.n_pad, size)
+    assert pl["rows"] == 2 * max(b[0].shape[-3] for b in op._bks)
+    g = torch.Generator(device=cuda).manual_seed(11)
+    X = torch.randn(op.n_pad, op.n_pad, device=cuda, generator=g)
+    args = (X, X.T.contiguous(), op._bks, op.n_groups)
+    got = bk.banded_ata_buckets(*args)
+    assert _rel(got, bk.banded_ata_buckets_ref(*args)) <= 1e-5
+    assert torch.equal(got, bk.banded_ata_buckets(*args))
+
+
+@pytest.mark.parametrize("slab", ["plan", "two spans"])
+@pytest.mark.parametrize("dtype", KINDS)
+def test_k1_lines_in_passes(cuda, geometries, dtype, slab,
+                            fresh_banded_plans, monkeypatch):
+    """K1 with one part a tile on nx300 (384 lines a block, taken in two
+    passes of 256; with room for two spans, in chunks within each pass)
+    against the plain version, the same bits from run to run."""
+    A, nx, theta = geometries["nx300"]
+    op = BucketedBandedProjector.from_scipy_fan(
+        A, nx, None, angles=theta, n_groups=32, dtype=dtype, device=cuda)
+    plans = {k: dict(v) for k, v in bk.PLANS.items()}
+    plans["banded_ata"]["parts"] = (1,)
+    if slab == "two spans":
+        plans["banded_ata"]["slab_bytes"] = {4: 1, 2: 1, 1: 1}
+    monkeypatch.setattr(bk, "PLANS", plans)
+    bk.clear_plans()
+    pl = bk.launch_plan("banded_ata", tuple(b[0].shape[-3] for b in op._bks),
+                        op.n_pad, op._bks[0][0].element_size())
+    assert (pl["parts"], pl["lines"]) == (1, 384)
+    g = torch.Generator(device=cuda).manual_seed(14)
+    X = torch.randn(op.n_pad, op.n_pad, device=cuda, generator=g)
+    args = (X, X.T.contiguous(), op._bks, op.n_groups)
+    got = bk.banded_ata_buckets(*args)
+    assert _rel(got, bk.banded_ata_buckets_ref(*args)) <= 1e-5
+    assert torch.equal(got, bk.banded_ata_buckets(*args))
+
+
+def test_k1_large_n(cuda):
+    """K1 on a pack of n = 12288 (16 parts of 768 lines: every block takes
+    its lines in three passes of 256), most of its (tap, line, tile) rows
+    zero, against the plain version, the same bits from run to run."""
+    n, na, T, p_pad, G = 12288, 2, 5, 128, 4
+    g = torch.Generator(device=cuda).manual_seed(15)
+    keep = torch.rand(na, T, n, p_pad // 64, 1, device=cuda, generator=g)
+    W = torch.randn(na, T, n, p_pad // 64, 64, device=cuda, generator=g)
+    W = (W * (keep < 0.2)).reshape(na, T, n, p_pad).contiguous()
+    S = torch.randint(0, n, (na, n), device=cuda, generator=g,
+                      dtype=torch.int32)
+    Pm = torch.randint(0, n, (na, G, p_pad), device=cuda, generator=g,
+                       dtype=torch.int32)
+    buckets = [(W, S, Pm, None, False)]
+    pl = bk.launch_plan("banded_ata", (T,), n, 4)
+    assert (pl["parts"], pl["lines"]) == (16, 768)
+    X = torch.randn(n, n, device=cuda, generator=g)
+    args = (X, X.T.contiguous(), buckets, G)
+    got = bk.banded_ata_buckets(*args)
+    assert _rel(got, bk.banded_ata_buckets_ref(*args)) <= 1e-5
+    assert torch.equal(got, bk.banded_ata_buckets(*args))
+
+
+@pytest.mark.parametrize("dtype", KINDS)
+def test_k1_span_bytes(cuda, geometries, dtype):
+    """One K1 apply counts the bytes of the spans it loads and the stored
+    bytes of the slabs they lie in: what ``pack_spans`` of the pack gives,
+    at K1's tile width; on tomo256x60 under a quarter of the pack."""
+    A, nx, theta = geometries["tomo256x60"]
+    op = BucketedBandedProjector.from_scipy_fan(
+        A, nx, None, angles=theta, n_groups=32, dtype=dtype, device=cuda)
+    size = op._bks[0][0].element_size()
+    det = bk.span_det(size)
+    spans = bk.pack_spans(op._bks)
+    want = sum(int((sp >> 16).sum()) for sp in spans) * det * size
+    stored = sum(b[0].numel() for b in op._bks) * size
+    X = torch.zeros(op.n_pad, op.n_pad, device=cuda)
+    bk.banded_ata_buckets(X, X, op._bks, op.n_groups)
+    before = dict(bk.k1_bytes)
+    bk.banded_ata_buckets(X, X, op._bks, op.n_groups)
+    assert bk.k1_bytes["spans"] - before["spans"] == want
+    assert bk.k1_bytes["stored"] - before["stored"] == stored
+    assert 0 < want < 0.25 * stored
+
+
+@pytest.mark.parametrize("dtype", KINDS)
+def test_k1_partial_tile(cuda, dtype):
+    """A pack whose p_pad (96) is no multiple of K1's float32 tile (64
+    detectors): the last tile's missing detectors load as zeros."""
+    A = fan_beam_matrix(48, views=12).astype(np.float32)
+    op = BucketedBandedProjector.from_scipy_fan(
+        A, 48, 12, n_groups=8, n_buckets=2, lane_pad=32, dtype=dtype,
+        device=cuda)
+    assert op._bks[0][0].shape[-1] == 96
+    g = torch.Generator(device=cuda).manual_seed(12)
+    X = torch.randn(op.n_pad, op.n_pad, device=cuda, generator=g)
+    args = (X, X.T.contiguous(), op._bks, op.n_groups)
+    assert _rel(bk.banded_ata_buckets(*args),
+                bk.banded_ata_buckets_ref(*args)) <= 1e-5
+
+
+def test_k1_takes_spans_from_the_caller(cuda):
+    """``prepare(spans=)`` (a caller whose buckets are filled later) gives
+    K1 the same bits as the spans it makes itself; spans of another shape
+    are refused."""
+    op = _op(cuda, None)
+    X = torch.randn(op.n_pad, op.n_pad, device=cuda)
+    XT = X.T.contiguous()
+    own = bk.banded_ata_buckets(X, XT, op._bks, op.n_groups)
+    spans = [sp.cpu() for sp in bk.pack_spans(op._bks)]
+    prepared = bk.prepare("banded_ata", X, op._bks, None, op.n_groups,
+                          spans=spans)
+    assert torch.equal(own, bk.banded_ata_buckets(X, XT, op._bks,
+                                                  op.n_groups, prepared))
+    with pytest.raises(ValueError, match="spans must have shape"):
+        bk.prepare("banded_ata", X, op._bks, None, op.n_groups,
+                   spans=[sp[:, :, :-1] for sp in spans])
+
+
 @pytest.mark.parametrize("dtype", KINDS)
 @pytest.mark.parametrize("geometry", ["tomo256x60", "nx300"])
 def test_banded_fwd_adj_buckets(cuda, geometries, geometry, dtype):

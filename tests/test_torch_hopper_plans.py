@@ -4,10 +4,10 @@ entry points' device default, on the CPU.
 - ``shear_kernels.k_split``: K6's split of the C*C axis covers ``[0, K)``
   exactly once, in ascending block order (the order its partials are
   summed), in whole tiles (64 rows, as ``csrc/shear.cu`` has them).
-- ``banded_kernels.launch_plan``: K1's cluster, and K2's and K3's parts,
-  chunks and TMA boxes for every bucket of tomo256x60 (n = 256) and of
-  nx = 300 (n = 384, 20 views) stay within the 227 KB of shared memory a
-  block may have; a plan that cannot fit is refused.
+- ``banded_kernels.launch_plan``: K1's cluster and span rows, and K2's
+  and K3's parts, chunks and TMA boxes for every bucket of tomo256x60 (n =
+  256) and of nx = 300 (n = 384, 20 views) stay within the 227 KB of
+  shared memory a block may have; a plan that cannot fit is refused.
 - The 3xTF32 split of K6's float32 path, emulated by rounding mantissas to
   TF32 in torch: hi.hi + hi.lo + lo.hi is within 1e-6 of the float64
   product (single TF32 is not).
@@ -84,28 +84,28 @@ def geometries():
 @pytest.mark.parametrize("itemsize", [4, 2, 1])
 @pytest.mark.parametrize("geometry", ["tomo256x60", "nx300"])
 def test_ata_plan_fits_shared_memory(geometries, geometry, itemsize):
+    """K1 walks tap spans: its blocks hold ``rows`` packed (tap, line) rows
+    with their 4-byte entries, at least two whole spans of every bucket (so
+    a chunk of whole lines always fits), within the shared memory a block
+    may have."""
     taps, n = geometries[geometry]
     assert n == {"tomo256x60": 256, "nx300": 384}[geometry]
     pl = launch_plan("banded_ata", tuple(taps), n, itemsize)
     assert pl["parts"] in (1, 2, 4, 8, 16) and pl["det"] in (32, 64)
-    assert pl["parts"] * pl["lines"] >= n
+    assert pl["parts"] * pl["lines"] >= n and pl["lines"] >= 1
+    assert pl["rows"] >= 2 * max(taps)
+    assert pl["smem_bytes"] == pl["rows"] * (pl["det"] * itemsize + 4)
     assert pl["smem_bytes"] <= SMEM_BYTES
     for T, b in zip(taps, pl["buckets"]):
         assert b["parts"] == pl["parts"] and b["lines"] == pl["lines"]
-        assert b["chunks"] * b["chunk_lines"] >= b["lines"]
-        assert T % b["taps_per_box"] == 0 and b["taps_per_box"] <= 256
-        assert b["chunk_lines"] <= 256
+        assert 2 * T <= b["rows"] <= pl["rows"]
         assert b["smem_bytes"] <= pl["smem_bytes"]
-    if geometry == "tomo256x60":
-        # bf16 and int8 slabs come in one load; float32 tiles (64
-        # detectors, 26 KB slabs) in at most three chunks, all but the
-        # last reloaded from L2
-        most = 3 if itemsize == 4 else 1
-        assert all(b["chunks"] <= most for b in pl["buckets"])
 
 
 def test_ata_plan_refuses_what_does_not_fit():
-    assert tile_plan("banded_ata", 15, 12288, 4)["chunks"] > 1  # in chunks
+    # 768 lines a block, which it takes in three passes of 256
+    pl = tile_plan("banded_ata", 15, 12288, 4)
+    assert (pl["parts"], pl["lines"]) == (16, 768) and pl["rows"] >= 30
     with pytest.raises(ValueError, match="shared memory"):
         tile_plan("banded_ata", 2000, 256, 4)
 

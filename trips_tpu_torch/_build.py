@@ -28,10 +28,11 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # symbol -> argtypes; every entry point returns a CUDA error code (int)
 ENTRY_POINTS = {
-    # K1-K3: op, kind, nb, 5 pointer arrays (W, S, Pm, scales, aidx), 6 int
-    # arrays (na, T, L, Tb, cols, fa), in, inT, out, p, rows, n, p_pad, G,
-    # det, parts, lines, nf, acc, amax, bound, bstride, finish, stream
-    "trips_banded": [_I] * 3 + [_P] * 14 + [_I] * 9 + [_P] * 3 + [_I] * 2
+    # K1-K3: op, kind, nb, 6 pointer arrays (W, S, Pm, scales, aidx,
+    # spans), 6 int arrays (na, T, L, Tb, cols, fa), in, inT, out, p, rows,
+    # n, p_pad, G, det, parts, lines, span_rows, nf, acc, amax, bound,
+    # bstride, finish, stream
+    "trips_banded": [_I] * 3 + [_P] * 15 + [_I] * 10 + [_P] * 3 + [_I] * 2
                     + [_P],
     "trips_banded_max_buckets": [],
     # K4: kind, Q, kx, fx, ky, fy, kq, starts, out, na, C, ty, tx, w2, r1,

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks shared by banded.cu and shear.cu: TMA
 // tensor maps (encoded on the host through the driver entry point, so the
 // library links no libcuda, and cached per pointer and shape), mbarriers,
-// TMA loads and wgmma shared-memory descriptors.
+// TMA loads, cp.async copies and wgmma shared-memory descriptors.
 #pragma once
 
 #include <cuda.h>
@@ -93,7 +93,7 @@ inline int tensor_map(CUtensorMap* out, const void* ptr, CUtensorMapDataType dt,
   return 0;
 }
 
-// ---- device: mbarriers and TMA ---------------------------------------------
+// ---- device: mbarriers, TMA and cp.async ----------------------------------
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -134,6 +134,21 @@ __device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
       "}\n" ::"r"(smem_addr(bar)),
       "r"(parity)
       : "memory");
+}
+
+// cp.async of 16 bytes from global to shared memory, past L1; the bytes
+// past `src_bytes` (0 or 16) are zero-filled, and none is read at 0.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// Wait for every cp.async this thread issued.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,

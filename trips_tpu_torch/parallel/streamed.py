@@ -137,17 +137,21 @@ class StreamedDynamicBandedOperator(LinearOperator):
         # So each twin's arguments are made here once (``bk.prepare``: the
         # bucket checks and ctypes arguments, off the apply's path) and
         # handed to the wrappers, which then skip their cache.
-        # K1's and K3's fixed-point bounds: the slots are filled per apply,
-        # so each frame's come from its host stacks, once for both slots
+        # K1's and K3's fixed-point bounds and K1's tap spans: the slots are
+        # filled per apply, so each frame's come from its host stacks, once
+        # for both slots (the spans resident, one copy a frame)
         bounds = [bk.pack_bounds(op._bks, op.n_groups)
                   for op in self.frame_ops]
-        self._twins = [[self._twin(s, t, layouts[t], aidx[t], bounds[t])
+        spans = [tuple(sp.to(dev) for sp in bk.pack_spans(op._bks))
+                 for op in self.frame_ops]
+        self._twins = [[self._twin(s, t, layouts[t], aidx[t], bounds[t],
+                                   spans[t])
                         for t in range(self.nt)] for s in range(2)]
         self._side = torch.cuda.Stream(dev)
         self._ready = [torch.cuda.Event() for _ in range(2)]
         self._free = [torch.cuda.Event() for _ in range(2)]
 
-    def _twin(self, s, t, layout, aidx, bounds):
+    def _twin(self, s, t, layout, aidx, bounds, spans):
         op = self.frame_ops[t]
         slot = self._slots[s]
         views = iter([slot[o:o + nbytes].view(h.dtype).view(h.shape)
@@ -163,7 +167,7 @@ class StreamedDynamicBandedOperator(LinearOperator):
             setattr(tw, attr, functools.partial(
                 getattr(bk, name + "_buckets"),
                 prepared=bk.prepare(name, slot, bks, ids, op.n_groups,
-                                    bounds.get(name))))
+                                    bounds.get(name), spans)))
         return tw
 
     def _upload(self, t, s):

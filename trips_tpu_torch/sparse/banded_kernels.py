@@ -41,6 +41,13 @@ and the order of the atomics does not matter. ``e`` comes, per frame,
 from ``pack_bounds`` (made once per pack, from the stored weights) times
 max|input|.
 
+K1 loads and walks only each tile's tap spans (``pack_spans``, made once
+per pack from its stored bytes, beside its bounds): per (angle, ``det``
+detectors, line), the taps from the first to the last that hold a nonzero
+weight in any of the tile's detectors. ``k1_bytes`` counts, per K1
+launch, the span bytes it loads and the stored bytes of the slabs it
+covers.
+
 They replace ``_fwd_call``, ``_adj_call`` and ``_ata_call`` of
 ``trips_tpu/sparse/pallas_banded_kernel.py``, and their ``jax.vmap`` over
 frames in ``trips_tpu/sparse/dynamic_banded.py``. Each wrapper sends a CPU
@@ -63,6 +70,10 @@ from .pack import dequant_slab
 # a replayed CUDA graph of a loop step counts its launches per replay
 # (core/loop.py)
 launch_counts = counted({"banded_fwd": 0, "banded_adj": 0, "banded_ata": 0})
+# per K1 launch, the bytes of the tap spans it loads and the stored bytes
+# of the slabs they lie in (counted per replay too): their ratio is the
+# share of the pack K1 still reads
+k1_bytes = counted({"spans": 0, "stored": 0})
 
 _KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _OP = {"banded_fwd": 0, "banded_adj": 1, "banded_ata": 2}  # csrc/banded.cu
@@ -73,18 +84,21 @@ _MAX_BOX = 256           # a TMA box spans at most 256 per dimension
 # lines (a cluster for K1 and K2: at most 16, Hopper's non-portable size;
 # independent blocks for K3); the most lines a part takes, so that every
 # block has work for its line slices but not a long serial chain; and the
-# most slab bytes a block loads at once, by weight size. The kernels use
-# 32 registers a thread, so shared memory sets how many 256-thread blocks
+# most slab bytes a block loads at once, by weight size. K2 and K3 use 32
+# registers a thread, so shared memory sets how many 256-thread blocks
 # share an SM: 6 with 36 KB slabs, 8 (all the SM's threads) with 26 KB or
 # less. The widths (32 or 64) and slab sizes (12, 18, 26 or 36 KB) are the
 # fastest on an H100 (chip_banded_plans.py): 256-byte float32 rows;
-# smaller slabs slow K1 and K2 in bfloat16, where they mean 16-block
-# clusters. The kernel takes the plan as given and sizes its shared memory
-# and TMA loads from it.
+# smaller slabs slow K2 in bfloat16, where they mean 16-block clusters.
+# K1 walks tap spans: its slab holds the spans of a block's lines packed,
+# so only the lines set its parts, and slab_bytes is the room its spans
+# get; 32 lines, 26 KB and 64-detector tiles are the fastest on an H100 in
+# every storage class (chip_banded_plans.py). The kernel takes the plan as
+# given and sizes its shared memory and loads from it.
 _TILE = {"parts": (1, 2, 4, 8, 16), "max_lines": 64}
 PLANS = {
-    "banded_ata": {**_TILE, "det": {4: 64, 2: 32, 1: 32},
-                   "slab_bytes": {4: 26 * 1024, 2: 36 * 1024, 1: 36 * 1024}},
+    "banded_ata": {**_TILE, "max_lines": 32, "det": {4: 64, 2: 64, 1: 64},
+                   "slab_bytes": {4: 26 * 1024, 2: 26 * 1024, 1: 26 * 1024}},
     "banded_fwd": {**_TILE, "det": {4: 64, 2: 32, 1: 64},
                    "slab_bytes": {4: 18 * 1024, 2: 36 * 1024, 1: 36 * 1024}},
     "banded_adj": {**_TILE, "det": {4: 64, 2: 64, 1: 64},
@@ -93,8 +107,9 @@ PLANS = {
 
 
 def reset_launch_counts():
-    for k in launch_counts:
-        launch_counts[k] = 0
+    for counts in (launch_counts, k1_bytes):
+        for k in counts:
+            counts[k] = 0
 
 
 # ---- plain versions ---------------------------------------------------------
@@ -272,6 +287,51 @@ def pack_bounds(buckets, n_groups):
     return {"banded_adj": col, "banded_ata": col * row}
 
 
+# ---- tap spans (K1) ---------------------------------------------------------
+def span_det(itemsize):
+    """The detectors per tile of K1's plan for weights of ``itemsize``
+    bytes: the width its tap spans are made at."""
+    return PLANS["banded_ata"]["det"][itemsize]
+
+
+def tap_spans(W, det):
+    """Per (angle, ``det`` detectors, line) of one bucket's stored weights
+    ``W ([nf,] na, T, n, p_pad)`` (any storage class: its own zeros, so an
+    int8 pack's spans come from its int8 bytes), the taps from the first to
+    the last that hold a nonzero weight in any of the tile's detectors:
+    int32 ``(angles, ceil(p_pad / det), n)``, angles the leading axes
+    flattened (frame f's angle a at ``f na + a``), each ``first tap | taps
+    << 16``; an empty span (a padded angle's, a line no ray crosses there)
+    is 0. Made in steps of at most ``_CHUNK`` weights."""
+    T, n, p_pad = W.shape[-3:]
+    W = W.reshape(-1, T, n, p_pad)
+    dch = -(-p_pad // det)
+    out = torch.empty((W.shape[0], dch, n), dtype=torch.int32,
+                      device=W.device)
+    taps = torch.arange(T, dtype=torch.int32, device=W.device)[:, None, None]
+    step = max(1, _CHUNK // W[0].numel())
+    for a0 in range(0, W.shape[0], step):
+        nz = W[a0:a0 + step] != 0
+        if p_pad % det:
+            nz = torch.nn.functional.pad(nz, (0, dch * det - p_pad))
+        nz = nz.reshape(nz.shape[:3] + (dch, det)).any(-1)  # (a, T, n, dch)
+        lo = torch.where(nz, taps, T).amin(1)
+        hi = torch.where(nz, taps, -1).amax(1)
+        cnt = torch.where(hi >= lo, hi - lo + 1, 0)
+        lo = torch.where(hi >= lo, lo, 0)
+        out[a0:a0 + step] = (lo | (cnt << 16)).transpose(1, 2)
+    return out
+
+
+def pack_spans(buckets, det=None):
+    """``tap_spans`` of every bucket's ``W`` at ``det`` detectors (default:
+    K1's plan for the pack's weight size), on the buckets' device: a tuple
+    of int32 tensors, one per bucket."""
+    if det is None:
+        det = span_det(buckets[0][0].element_size())
+    return tuple(tap_spans(b[0], det) for b in buckets)
+
+
 def _max_abs(t, dims):
     """max|t| per frame (frames in front of ``dims`` dimensions)."""
     return t.abs().amax(dim=tuple(range(-dims, 0))).reshape(-1)
@@ -287,10 +347,31 @@ def tile_plan(kernel, T, n, itemsize, parts=None):
     ``chunk_lines`` lines of all taps at a time (``taps_per_box`` taps per
     TMA box, the largest divisor of T up to 256), ``smem_bytes`` of shared
     memory; ``chunks`` > 1 means the block loads its slab in turns (and
-    K1 reads its weights a second time, from L2, for stage 2)."""
+    K1 reads its weights a second time, from L2, for stage 2).
+
+    K1 walks tap spans: it packs a block's spans into ``rows`` (tap, line)
+    rows of shared memory, the slab's bytes but at least two full spans
+    (``2 T``), each with its 4-byte row entry; its parts are the fewest
+    with at most ``max_lines`` lines (else 16), and its blocks take their
+    lines in chunks when their spans do not fit (and in passes of 256
+    lines, ``csrc/banded.cu``). The kernel adds its line table and
+    predictors to ``smem_bytes`` and refuses a launch they do not fit."""
     cfg = PLANS[kernel]
     det, slab = cfg["det"][itemsize], cfg["slab_bytes"][itemsize]
     row = det * itemsize  # one (tap, line) row of a tile
+    if kernel == "banded_ata":
+        for c in cfg["parts"] if parts is None else (parts,):
+            lines = -(-n // c)
+            if lines <= cfg["max_lines"]:
+                break
+        rows = max(slab // row, 2 * T)
+        smem = rows * (row + 4)
+        if smem > SMEM_BYTES:
+            raise ValueError(f"{kernel}: two spans of T={T} taps need "
+                             f"{smem} bytes of shared memory, more than "
+                             f"{SMEM_BYTES}")
+        return {"det": det, "parts": c, "lines": lines, "rows": rows,
+                "smem_bytes": smem}
     for c in cfg["parts"] if parts is None else (parts,):
         lines = -(-n // c)
         if lines <= cfg["max_lines"] and T * lines * row <= slab:
@@ -314,13 +395,16 @@ def launch_plan(kernel, taps, n, itemsize):
     of their T), memoized (the operator asks for the same plan every
     apply): the parts and lines are shared (the most any bucket asks for),
     the chunks and boxes are each bucket's, the shared memory the
-    largest."""
+    largest (K1's ``rows`` too)."""
     parts = max(tile_plan(kernel, T, n, itemsize)["parts"] for T in taps)
     plans = [tile_plan(kernel, T, n, itemsize, parts) for T in taps]
-    return {"det": plans[0]["det"], "parts": parts,
-            "lines": plans[0]["lines"],
-            "smem_bytes": max(p["smem_bytes"] for p in plans),
-            "buckets": plans}
+    out = {"det": plans[0]["det"], "parts": parts,
+           "lines": plans[0]["lines"],
+           "smem_bytes": max(p["smem_bytes"] for p in plans),
+           "buckets": plans}
+    if kernel == "banded_ata":
+        out["rows"] = max(p["rows"] for p in plans)
+    return out
 
 
 # ---- kernel wrappers --------------------------------------------------------
@@ -396,26 +480,30 @@ def _check_buckets(inp, buckets, aidx, n_groups):
 
 
 # launch arguments of buckets already checked, by (kernel, id of the bucket
-# and angle id sequences, their cols flags, n_groups, device), and the
-# packs' fixed-point bounds, by (id of the bucket sequence, n_groups): weak
-# references to their tensors and the value; an entry stands only while
-# the sequences hold the very tensors it was made for
+# and angle id sequences, their cols flags, n_groups, device), the packs'
+# fixed-point bounds, by (id of the bucket sequence, n_groups), and their
+# tap spans, by (id of the bucket sequence, det): weak references to their
+# tensors and the value; an entry stands only while the sequences hold the
+# very tensors it was made for
 _PREPARED = {}
 _BOUNDS = {}
+_SPANS = {}
 
 
 def clear_plans():
-    """Forget the memoized plans, launch arguments and bounds (after
+    """Forget the memoized plans, launch arguments, bounds and spans (after
     ``PLANS`` changed)."""
     launch_plan.cache_clear()
     _PREPARED.clear()
     _BOUNDS.clear()
+    _SPANS.clear()
 
 
 def _kept(cache, key, tensors, make):
     """``cache``'s value for ``key`` if it was made for these very
     ``tensors``, else ``make()``, kept (at most 64 entries, the oldest
-    dropped first)."""
+    dropped first) until one of the tensors is freed: so no value (a
+    pack's bounds, spans and launch arguments) outlives its pack."""
     hit = cache.get(key)
     if hit is not None and len(hit[0]) == len(tensors) and all(
             r() is t for r, t in zip(hit[0], tensors)):
@@ -423,22 +511,54 @@ def _kept(cache, key, tensors, make):
     out = make()
     if len(cache) >= 64:
         del cache[next(iter(cache))]
-    cache[key] = ([weakref.ref(t) for t in tensors], out)
+    entry = ([], out)
+
+    def drop(_):
+        if cache.get(key) is entry:
+            del cache[key]
+        entry[0].clear()  # no cycle through the references' callback
+
+    entry[0].extend(weakref.ref(t, drop) for t in tensors)
+    cache[key] = entry
     return out
 
 
-def prepare(name, inp, buckets, aidx, n_groups, bound=None):
+def _spans_on(spans, buckets, det, dev):
+    """``spans`` (one per bucket, from ``pack_spans``) checked against the
+    buckets and on ``dev``: int32, contiguous, ``(angles, ceil(p_pad /
+    det), n)`` each."""
+    if len(spans) != len(buckets):
+        raise ValueError(f"{len(spans)} span tensors for {len(buckets)} "
+                         f"buckets")
+    out = []
+    for sp, (W, *_) in zip(spans, buckets):
+        sp = torch.as_tensor(sp).to(dev, torch.int32).contiguous()
+        T, n, p_pad = W.shape[-3:]
+        want = (W.numel() // (T * n * p_pad), -(-p_pad // det), n)
+        if tuple(sp.shape) != want:
+            raise ValueError(f"spans must have shape {want} at {det} "
+                             f"detectors, got {tuple(sp.shape)}")
+        out.append(sp)
+    return out
+
+
+def prepare(name, inp, buckets, aidx, n_groups, bound=None, spans=None):
     """Check the buckets (``_check_buckets``) and make their launch
     arguments for kernel ``name`` (``banded_fwd``, ``banded_adj`` or
     ``banded_ata``; ``aidx`` None for K1) on ``inp``'s device: (n, p_pad,
-    the buckets' frame count or None, [(nb, ctypes arrays, plan)], the
-    frames' fixed-point bounds (K1, K3: ``pack_bounds`` of the buckets, a
-    float64 tensor on the device, unless ``bound`` gives it, as a caller
-    whose buckets are filled later must; K2: None)), one entry per launch
-    of at most the library's ``trips_banded_max_buckets``. The arguments
-    hold the tensors' addresses, not the tensors: a caller that keeps them
-    (the wrappers' ``prepared``) keeps the tensors alive and unmoved beside
-    them. The bound is taken once: a pack is not changed in place after."""
+    the buckets' frame count or None, [(nb, ctypes arrays, plan, spans)],
+    the frames' fixed-point bounds (K1, K3: ``pack_bounds`` of the
+    buckets, a float64 tensor on the device, unless ``bound`` gives it, as
+    a caller whose buckets are filled later must; K2: None)), one entry
+    per launch of at most the library's ``trips_banded_max_buckets``;
+    ``spans``: K1's tap spans of the launch's buckets on the device
+    (``pack_spans``, unless ``spans`` gives them, one per bucket, as
+    ``bound``) and their span and stored bytes (of the buckets with a
+    frame axis, then of those without, which every frame loads), else
+    None. The arguments hold the tensors' addresses, not the tensors: a
+    caller that keeps them (the wrappers' ``prepared``) keeps the tensors
+    alive and unmoved beside them. The bound and the spans are taken once:
+    a pack is not changed in place after."""
     from .. import _build
 
     n, p_pad, nf = _check_buckets(inp, buckets, aidx, n_groups)
@@ -449,31 +569,55 @@ def prepare(name, inp, buckets, aidx, n_groups, bound=None):
         if bound.numel() not in (1, nf or 1):
             raise ValueError(f"{bound.numel()} bounds for a pack of "
                              f"{nf or 1} frames")
+    itemsize = buckets[0][0].element_size()
+    if name == "banded_ata":
+        det = span_det(itemsize)
+        spans = _spans_on(pack_spans(buckets, det) if spans is None
+                          else spans, buckets, det, inp.device)
+    else:
+        spans = None
     most = _build.load().trips_banded_max_buckets()
     launches = []
     for k in range(0, len(buckets), most):
         part = buckets[k:k + most]
         pl = launch_plan(name, tuple(b[0].shape[-3] for b in part), n,
-                         part[0][0].element_size())
+                         itemsize)
+        sp = spans[k:k + most] if spans else [None] * len(part)
         cols = list(zip(*(
             (W.data_ptr(), S.data_ptr(), Pm.data_ptr(),
              sc.data_ptr() if sc is not None else None,
              aidx[k + j].data_ptr() if aidx is not None else None,
-             W.shape[-4], W.shape[-3], q["chunk_lines"], q["taps_per_box"],
-             int(c), W.shape[-4] if W.dim() == 5 else 0)
-            for j, ((W, S, Pm, sc, c), q)
-            in enumerate(zip(part, pl["buckets"])))))
-        arrs = ([(ctypes.c_void_p * len(part))(*v) for v in cols[:5]]
-                + [(ctypes.c_int * len(part))(*v) for v in cols[5:]])
-        launches.append((len(part), arrs, pl))
+             s.data_ptr() if s is not None else None,
+             W.shape[-4], W.shape[-3], q.get("chunk_lines", 1),
+             q.get("taps_per_box", 1), int(c),
+             W.shape[-4] if W.dim() == 5 else 0)
+            for j, ((W, S, Pm, sc, c), q, s)
+            in enumerate(zip(part, pl["buckets"], sp)))))
+        arrs = ([(ctypes.c_void_p * len(part))(*v) for v in cols[:6]]
+                + [(ctypes.c_int * len(part))(*v) for v in cols[6:]])
+        launches.append((len(part), arrs, pl,
+                         (sp, _span_bytes(part, sp, pl["det"])) if spans
+                         else None))
     return n, p_pad, nf, launches, None if name == "banded_fwd" else bound
+
+
+def _span_bytes(buckets, spans, det):
+    """(span bytes, stored bytes) of the buckets with a frame axis, then of
+    those without: host ints (one read of the spans' lengths)."""
+    out = [0, 0, 0, 0]
+    for (W, *_), sp in zip(buckets, spans):
+        k = 0 if W.dim() == 5 else 2
+        out[k] += int((sp >> 16).sum()) * det * W.element_size()
+        out[k + 1] += W.numel() * W.element_size()
+    return tuple(out)
 
 
 def _prepare(name, inp, buckets, aidx, n_groups):
     """``prepare``, kept: the operator hands over the same buckets every
     apply, so their check and arguments are kept, without keeping the
     tensors alive, and reused while the same tensors come again. K1 and K3
-    of one pack share its bounds (one ``abs_sums`` pass)."""
+    of one pack share its bounds (one ``abs_sums`` pass); K1's spans are
+    kept beside them."""
     stacks = [t for b in buckets for t in b[:4] if t is not None]
     tensors = stacks + (list(aidx) if aidx is not None else [])
     key = (name, id(buckets), id(aidx), tuple(bool(b[4]) for b in buckets),
@@ -483,7 +627,12 @@ def _prepare(name, inp, buckets, aidx, n_groups):
         bound = None if name == "banded_fwd" else _kept(
             _BOUNDS, (id(buckets), n_groups), stacks,
             lambda: pack_bounds(buckets, n_groups))[name]
-        return prepare(name, inp, buckets, aidx, n_groups, bound)
+        spans = None
+        if name == "banded_ata":
+            det = span_det(buckets[0][0].element_size())
+            spans = _kept(_SPANS, (id(buckets), det), stacks,
+                          lambda: pack_spans(buckets, det))
+        return prepare(name, inp, buckets, aidx, n_groups, bound, spans)
 
     return _kept(_PREPARED, key, tensors, make)
 
@@ -511,17 +660,22 @@ def _launch(name, inp, inp_t, out, kind, launches, p, rows, n, p_pad,
                  int(bound.numel() > 1))
     with torch.cuda.device(inp.device):
         stream = torch.cuda.current_stream(inp.device).cuda_stream
-        for k, (nb, arrs, pl) in enumerate(launches):
+        for k, (nb, arrs, pl, spans) in enumerate(launches):
             err = lib.trips_banded(
                 _OP[name], _KIND[kind], nb,
                 *(ctypes.addressof(a) for a in arrs), inp.data_ptr(),
                 inp_t.data_ptr(), out.data_ptr(), p, rows, n, p_pad,
-                n_groups, pl["det"], pl["parts"], pl["lines"], nf, *fixed,
+                n_groups, pl["det"], pl["parts"], pl["lines"],
+                pl.get("rows", 0), nf, *fixed,
                 int(k == len(launches) - 1), stream)
             if err:
                 _PREPARED.clear()  # nothing kept from a refused launch
                 raise RuntimeError(f"{name} launch failed: CUDA error {err}")
             launch_counts[name] += 1
+            if spans is not None:
+                nbytes = spans[1]
+                k1_bytes["spans"] += nbytes[0] + nf * nbytes[2]
+                k1_bytes["stored"] += nbytes[1] + nf * nbytes[3]
     return out
 
 
